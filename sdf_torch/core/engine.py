@@ -1,0 +1,502 @@
+"""Grid sampling + meshing engine (counterpart of ``sdf_tpu.core.engine``):
+the single-device dense ``generate()``.
+
+  * bounds: the reference's 16^3 probe-grid refinement, evaluated on the
+    CPU in the compute dtype with float64 loop state (machine-independent
+    bounds, as in the JAX package);
+  * probe cull: the per-batch ``_skip`` test, evaluated with torch ops on
+    the device and fetched together with the counts (speculation);
+  * eval + classify: kernel B1 (``core.eval_classify``);
+  * count: ``mc.count_indexed`` (kernel B3), then ONE host sync for every
+    count plus the cull mask;
+  * emit: ``mc.gather_emit_indexed`` (kernels B4, B3, B5) into buffers
+    sized by ``mc.round_capacity``, packed when float32;
+  * decode: ``mc.unpack_indexed`` on the host.
+
+Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
+that raises.  ``device="cpu"`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from ..io import stl
+from ..utils import progress
+from . import eval_classify, mc
+from .node import Points, cast, resolve_device, upload
+
+WORKERS = None
+SAMPLES = 2**22
+BATCH_SIZE = 32
+
+# Culled-batch fraction at which the JAX package routes sparse=True to its
+# tiled path (not ported yet: ROADMAP A11).
+AUTO_TILES_THRESHOLD = 0.6
+
+# Structured report of the most recent generate(): phase wall times in
+# seconds plus batch/triangle counters (the JAX package's keys).
+LAST_STATS = {}
+
+_MC_VARIANT_ALIASES = {"fast": "default"}
+
+
+class _phase:
+    """Context manager: profiler range + LAST_STATS wall time (of the
+    host-side dispatch; device work is asynchronous)."""
+
+    def __init__(self, name, stats):
+        self.name = name
+        self.stats = stats
+
+    def __enter__(self):
+        self.t0 = time.time()
+        self.rf = torch.profiler.record_function("sdf_torch." + self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        self.stats[self.name] = round(time.time() - self.t0, 4)
+        return False
+
+
+def resolve_dtype(dtype):
+    """float32 (the default) or float64, given as a torch or numpy dtype."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+    if out not in (torch.float32, torch.float64):
+        raise ValueError("dtype must be float32 or float64, got %r" % (dtype,))
+    return out
+
+
+def _expand_tile_mask(keep, tile, shape):
+    """Per-tile mask -> per-cell mask cut to ``shape`` (by broadcasting:
+    ``repeat_interleave`` may sync with the host)."""
+    tx, ty, tz = keep.shape
+    m = keep[:, None, :, None, :, None].expand(tx, tile, ty, tile, tz, tile)
+    m = m.reshape(tx * tile, ty * tile, tz * tile)
+    return m[: shape[0], : shape[1], : shape[2]]
+
+
+def _eval_points(sdf, points, dtype, device):
+    """Evaluate an uncast expression on host (N, 3) float64 points ->
+    (N,) tensor on ``device``."""
+    sdf_c = cast(sdf, dtype, device)
+    p = Points(*upload([points[:, i] for i in range(points.shape[1])], dtype,
+                       device))
+    return torch.as_tensor(sdf_c(p)).broadcast_to(p.bshape)
+
+
+def _estimate_bounds_host(sdf, dtype):
+    """The reference's bounds refinement: up to 32 iterations of a 16^3
+    probe grid, ALL loop arithmetic in host float64, the evaluations on the
+    CPU in ``dtype`` (see sdf_tpu.core.engine._estimate_bounds_host: the
+    float64 state keeps the trajectory machine-independent, and the 1e-4
+    slack at float32 moves the cutoff off structural ties)."""
+    s = 16
+    slack = 0.0 if dtype == torch.float64 else 1e-4
+    lo = np.full(3, -1e9)
+    hi = np.full(3, 1e9)
+    prev = None
+    empty = True
+    sdf_c = cast(sdf, dtype, "cpu")
+    for _ in range(32):
+        X = np.linspace(lo[0], hi[0], s)
+        Y = np.linspace(lo[1], hi[1], s)
+        Z = np.linspace(lo[2], hi[2], s)
+        d = np.array([X[1] - X[0], Y[1] - Y[0], Z[1] - Z[0]])
+        threshold = np.linalg.norm(d) / 2
+        if threshold == prev:
+            break
+        prev = threshold
+        Xt, Yt, Zt = [torch.as_tensor(a, dtype=dtype) for a in (X, Y, Z)]
+        p = Points(Xt[:, None, None], Yt[None, :, None], Zt[None, None, :])
+        vol = torch.as_tensor(sdf_c(p)).broadcast_to((s, s, s))
+        vol = vol.to(torch.float64).numpy()
+        where = np.argwhere(np.abs(vol) <= threshold * (1 + slack))
+        if len(where) == 0:
+            break
+        empty = False
+        hi = lo + where.max(axis=0) * d + d / 2
+        lo = lo + where.min(axis=0) * d - d / 2
+    return lo, hi, empty
+
+
+def _estimate_bounds(sdf, dtype=torch.float32):
+    lo, hi, empty = _estimate_bounds_host(sdf, dtype)
+    if empty:
+        raise ValueError(
+            "bounds estimation failed (no surface found); pass bounds= explicitly"
+        )
+    return tuple(lo.tolist()), tuple(hi.tolist())
+
+
+def _tile_slices(n, size):
+    """Tile start indices and (lo, hi) sample index per tile."""
+    starts = list(range(0, n, size))
+    return [(i, min(i + size, n - 1)) for i in starts]
+
+
+def _skip_probes(X, Y, Z, batch_size):
+    """Probe points for the per-batch ``_skip`` test: center + 8 corners per
+    tile.  Returns ``(probes (nt * 9, 3) float64, radii (nt,), (tx, ty,
+    tz))``."""
+    txs = _tile_slices(len(X), batch_size)
+    tys = _tile_slices(len(Y), batch_size)
+    tzs = _tile_slices(len(Z), batch_size)
+
+    probes = []
+    radii = []
+    for lox, hix in txs:
+        for loy, hiy in tys:
+            for loz, hiz in tzs:
+                x0, x1 = X[lox], X[hix]
+                y0, y1 = Y[loy], Y[hiy]
+                z0, z1 = Z[loz], Z[hiz]
+                cx, cy, cz = (x0 + x1) / 2, (y0 + y1) / 2, (z0 + z1) / 2
+                radii.append(np.linalg.norm([cx - x0, cy - y0, cz - z0]))
+                probes.append(
+                    [
+                        (cx, cy, cz),
+                        (x0, y0, z0),
+                        (x0, y0, z1),
+                        (x0, y1, z0),
+                        (x0, y1, z1),
+                        (x1, y0, z0),
+                        (x1, y0, z1),
+                        (x1, y1, z0),
+                        (x1, y1, z1),
+                    ]
+                )
+    probes = np.array(probes, dtype=np.float64).reshape(-1, 3)
+    return probes, np.array(radii), (len(txs), len(tys), len(tzs))
+
+
+def _skip_mask(sdf, X, Y, Z, batch_size, dtype):
+    """Host form of the per-batch ``_skip`` test: values evaluated on the
+    CPU in ``dtype``, compared in float64.  Returns a (tx, ty, tz) bool
+    array, True = skip."""
+    probes, radii, tshape = _skip_probes(X, Y, Z, batch_size)
+    values = _eval_points(sdf, probes, dtype, "cpu").to(torch.float64)
+    values = values.numpy().reshape(-1, 9)
+    center = np.abs(values[:, 0])
+    corners = values[:, 1:]
+    far = center > radii * (1 + 1e-4)
+    first_pos = corners[:, 0] > 0
+    same = np.where(
+        first_pos, np.all(corners > 0, axis=1), np.all(corners < 0, axis=1)
+    )
+    return (far & same).reshape(tshape)
+
+
+def _skip_mask_device(sdf, X, Y, Z, batch_size, dtype, device):
+    """The ``_skip`` test with torch ops on ``device``, comparisons in the
+    evaluation dtype, WITHOUT a host sync: returns ``(mask (nt,) bool
+    tensor, (tx, ty, tz))`` so the fetch rides the counts transfer."""
+    probes, radii, tshape = _skip_probes(X, Y, Z, batch_size)
+    values = _eval_points(sdf, probes, dtype, device).reshape(-1, 9)
+    (thresh,) = upload([radii * (1 + 1e-4)], dtype, device)
+    center = torch.abs(values[:, 0])
+    corners = values[:, 1:]
+    far = center > thresh
+    first_pos = corners[:, 0] > 0
+    same = torch.where(
+        first_pos, torch.all(corners > 0, dim=1), torch.all(corners < 0, dim=1)
+    )
+    return far & same, tshape
+
+
+# Box triangulation for debug markers: 36 corner ids (12 triangles) over
+# corners ordered product((x0,x1),(y0,y1),(z0,z1)).
+_DEBUG_BOX_IDX = np.array(
+    [3, 5, 7, 5, 3, 1, 0, 6, 4, 6, 0, 2, 0, 5, 1, 5, 0, 4,
+     5, 6, 7, 6, 5, 4, 6, 3, 7, 3, 6, 2, 0, 3, 2, 3, 0, 1]
+)
+
+
+def _debug_triangles(X, Y, Z, tiles, batch_size, inset=0.25):
+    """Inset marker boxes for a list of (i, j, k) tile indices ->
+    (36 * ntiles, 3) float64."""
+    tiles = np.asarray(tiles).reshape(-1, 3)
+    if len(tiles) == 0:
+        return np.zeros((0, 3), dtype=np.float64)
+    s = batch_size
+    axes = []
+    for coords, t in zip((X, Y, Z), tiles.T):
+        lo = coords[t * s]
+        hi = coords[np.minimum(t * s + s, len(coords) - 1)]
+        span = (hi - lo) * inset
+        axes.append((lo + span, hi - span))
+    corner_id = np.arange(8)
+    corners = np.stack(
+        [
+            np.where((corner_id >> (2 - a)) & 1, axes[a][1][:, None],
+                     axes[a][0][:, None])
+            for a in range(3)
+        ],
+        axis=-1,
+    )
+    return corners[:, _DEBUG_BOX_IDX, :].reshape(-1, 3).astype(np.float64)
+
+
+def generate(
+    sdf,
+    step=None,
+    bounds=None,
+    samples=SAMPLES,
+    workers=WORKERS,
+    batch_size=BATCH_SIZE,
+    verbose=True,
+    sparse=True,
+    dtype=None,
+    mesh=None,
+    checkpoint=None,
+    debug=False,
+    output="points",
+    mc_variant="lewiner",
+    device=None,
+):
+    """Sample the SDF on a dense grid and mesh it (see
+    sdf_tpu.core.engine.generate for the contract).
+
+    Returns a flat (3*T, 3) float64 array of world-space vertices, three
+    rows per triangle; ``output="mesh"`` returns ``(verts (V, 3) float64,
+    faces (T, 3) int32)``.  ``device=None`` runs on the card (``"cuda"``)
+    and raises without one; ``device="cpu"`` runs the plain versions.
+
+    Not ported yet, and raising ``NotImplementedError``:
+    ``mc_variant="lewiner"`` -- the default -- (ROADMAP A5/B2); a cull that
+    routes to the tiled path, or ``sparse="tiles"`` (A11); ``mesh=`` (A14);
+    ``checkpoint=`` (A8).  Pass ``mc_variant="fast"``.
+    """
+    start = time.time()
+    dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
+    stats = {}
+    mc_variant = _MC_VARIANT_ALIASES.get(mc_variant, mc_variant)
+    mc.get_tables(mc_variant)  # validate the name (lewiner raises)
+    if output not in ("points", "mesh"):
+        raise ValueError("output must be 'points' or 'mesh', got %r" % output)
+    if sparse == "tiles":
+        raise NotImplementedError(
+            "sparse='tiles' is not ported yet (ROADMAP A11)"
+        )
+    if sparse not in (True, False):
+        raise ValueError("sparse must be True, False or 'tiles'")
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP A14)")
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoint= is not ported yet (ROADMAP A8)"
+        )
+    want_indexed = output == "mesh" and not debug
+
+    if workers is not None:
+        warnings.warn(
+            "generate(workers=...) has no effect: the work runs on one "
+            "device, not a thread pool",
+            stacklevel=2,
+        )
+
+    if bounds is None:
+        with _phase("bounds", stats):
+            bounds = _estimate_bounds(sdf, dtype)
+    (x0, y0, z0), (x1, y1, z1) = bounds
+
+    if step is None and samples is not None:
+        volume = (x1 - x0) * (y1 - y0) * (z1 - z0)
+        step = (volume / samples) ** (1 / 3)
+
+    try:
+        dx, dy, dz = step
+    except TypeError:
+        dx = dy = dz = step
+
+    if verbose:
+        print("min %g, %g, %g" % (x0, y0, z0))
+        print("max %g, %g, %g" % (x1, y1, z1))
+        print("step %g, %g, %g" % (dx, dy, dz))
+
+    X = np.arange(x0, x1, dx)
+    Y = np.arange(y0, y1, dy)
+    Z = np.arange(z0, z1, dz)
+
+    s = batch_size
+    num_batches = (-(-len(X) // s)) * (-(-len(Y) // s)) * (-(-len(Z) // s))
+    lens = lambda n: [min(n - i, s + 1) for i in range(0, n, s)]
+    num_samples = sum(
+        lx * ly * lz
+        for lx in lens(len(X)) for ly in lens(len(Y)) for lz in lens(len(Z))
+    )
+
+    if verbose:
+        print(
+            "%d samples in %d batches with %d devices"
+            % (num_samples, num_batches, 1)
+        )
+
+    bar = progress.Bar(num_batches, enabled=verbose)
+
+    if len(X) < 2 or len(Y) < 2 or len(Z) < 2:
+        bar.done()
+        if output == "mesh":
+            return (
+                np.zeros((0, 3), dtype=np.float64),
+                np.zeros((0, 3), dtype=np.int32),
+            )
+        return np.zeros((0, 3), dtype=np.float64)
+
+    # sparse=True runs speculatively: the cull test is dispatched but not
+    # fetched, the dense pipeline is dispatched behind it with the
+    # device-resident mask, and the mask comes back with the counts in one
+    # transfer.
+    speculate = sparse is True
+    sshape = (-(-len(X) // s), -(-len(Y) // s), -(-len(Z) // s))
+    if speculate:
+        with _phase("skip_dispatch", stats):
+            skip_dev, sshape = _skip_mask_device(sdf, X, Y, Z, s, dtype,
+                                                 device)
+        skip3d = skip_dev.reshape(sshape)
+    else:
+        skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
+
+    with _phase("eval_classify", stats):
+        vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
+                                                    device)
+    bar.update(num_batches * 0.6)
+
+    cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
+    keep = _expand_tile_mask(~skip3d, s, cshape)
+    tshape = tuple(-(-c // s) for c in cshape)
+    with _phase("mc_count", stats):
+        ncells_dev, total, n_edges, per_tile_dev, active, emask = (
+            mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
+        )
+
+    # The one host sync before emit: every count, the per-tile counters and
+    # the cull mask in a single transfer.
+    got = torch.cat(
+        [ncells_dev.reshape(1).to(torch.int64),
+         total.reshape(1).to(torch.int64),
+         n_edges.reshape(1).to(torch.int64),
+         per_tile_dev.reshape(-1).to(torch.int64),
+         skip3d.reshape(-1).to(torch.int64)]
+    ).cpu().numpy()
+    n_cells, n, ne = (int(v) for v in got[:3])
+    npt = int(np.prod(tshape))
+    per_tile = got[3: 3 + npt].reshape(tshape)
+    skip = got[3 + npt:].astype(bool).reshape(sshape)
+    bar.update(num_batches * 0.8)
+
+    if speculate and skip.mean() >= AUTO_TILES_THRESHOLD:
+        raise NotImplementedError(
+            "the probe cull removed %.0f%% of the batches, which routes to "
+            "the tiled sparse path (not ported yet: ROADMAP A11); pass "
+            "sparse=False to mesh densely" % (100 * skip.mean())
+        )
+
+    if n_cells == 0:
+        indexed = (
+            np.zeros((0, 3), dtype=np.float64),
+            np.zeros((0, 3), dtype=np.int32),
+        )
+    else:
+        cell_capacity = mc.round_capacity(n_cells)
+        capacity = mc.round_capacity(n)
+        edge_capacity = mc.round_capacity(ne)
+        # Packed wire format (8 B/vertex + 8 B/triangle) when float32.
+        packed = False
+        if dtype == torch.float32:
+            packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
+        with _phase("mc_emit", stats):
+            everts, faces = mc.gather_emit_indexed(
+                vol, case, active, emask, edge_capacity, capacity,
+                cell_capacity, packed=packed, variant=mc_variant,
+            )
+        with _phase("d2h", stats):
+            if packed is not False:
+                # Both are int32 bit patterns: one transfer.
+                ev = everts[:, :ne]
+                both = torch.cat([ev.reshape(-1), faces[:, :n].reshape(-1)])
+                both = both.cpu().numpy().view(np.uint32)
+                eh = both[: ev.numel()].reshape(2, ne)
+                fh = both[ev.numel():].reshape(-1, n)
+            else:
+                eh = everts[:, :ne].cpu().numpy()
+                fh = faces[:, :n].cpu().numpy()
+        with _phase("decode", stats):
+            if packed is not False:
+                indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
+            else:
+                indexed = (eh.astype(np.float64).T, fh.T.astype(np.int32))
+
+    scale = np.array([dx, dy, dz])
+    offset = np.array([X[0], Y[0], Z[0]])
+    mverts = indexed[0] * scale + offset
+    mfaces = indexed[1]
+    points = None if want_indexed else mverts[mfaces.reshape(-1)]
+    bar.done()
+
+    # per_tile is sized on cell tiles, which can be one short of the
+    # sample-tile grid when an axis has a degenerate 1-sample last tile.
+    pt = np.zeros(skip.shape, dtype=np.int64)
+    a, b, c = per_tile.shape
+    pt[:a, :b, :c] = per_tile[: skip.shape[0], : skip.shape[1], : skip.shape[2]]
+    skipped = int(skip.sum())
+    nonempty = int(((pt > 0) & ~skip).sum())
+    empty = num_batches - skipped - nonempty
+
+    if debug:
+        flagged = np.argwhere(skip | (pt == 0))
+        points = np.concatenate(
+            [points, _debug_triangles(X, Y, Z, flagged, s)], axis=0
+        )
+    triangles = len(mfaces) if points is None else len(points) // 3
+    seconds = time.time() - start
+    stats.update(
+        batches=num_batches,
+        samples=num_samples,
+        skipped=skipped,
+        empty=empty,
+        nonempty=nonempty,
+        triangles=triangles,
+        total=round(seconds, 4),
+    )
+    LAST_STATS.clear()
+    LAST_STATS.update(stats)
+    if verbose:
+        print("%d skipped, %d empty, %d nonempty" % (skipped, empty, nonempty))
+        print("%d triangles in %g seconds" % (triangles, seconds))
+
+    if output == "mesh":
+        if points is not None:  # debug boxes are soup-only: dedup on host
+            return stl.dedup(points)
+        return mverts, mfaces
+    return points
+
+
+def generate_mesh(sdf, *args, **kwargs):
+    """``generate`` returning an indexed mesh: ``(verts (V, 3) float64
+    world-space, faces (T, 3) int32)``."""
+    return generate(sdf, *args, output="mesh", **kwargs)
+
+
+def save(path, sdf, *args, **kwargs):
+    """Generate and write a binary STL (other formats: ROADMAP A8)."""
+    if not path.lower().endswith(".stl"):
+        raise NotImplementedError(
+            "only .stl output is ported yet (other formats: ROADMAP A8)"
+        )
+    points = generate(sdf, *args, **kwargs)
+    stl.write_binary_stl(path, points)
+    return points

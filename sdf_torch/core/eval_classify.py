@@ -1,0 +1,379 @@
+"""Fused dense eval + classify (counterpart of ``sdf_tpu.core.pallas_eval``
+for the dense grid).
+
+``eval_and_classify`` evaluates an SDF expression over the grid
+``X x Y x Z`` and returns the volume with each cell's 8-bit corner-sign
+case code.  On the card it launches kernel B1 (``csrc/eval_classify.cu``),
+whose per-point body is generated from the expression here: the
+expression's own torch code runs once on ``Rec`` values, a recorder that
+turns every torch function and Python operator into one C++ statement.
+On the CPU it runs the plain pair ``_eval_volume`` + ``mc._cell_cases``,
+which is also what ``chip_smoke.py`` holds the kernel against.
+
+Expressions whose ops have no C++ form (gathers: textures, mesh SDFs,
+polygons) raise ``NotImplementedError`` naming the op on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import numbers
+
+import numpy as np
+import torch
+
+from .. import _build
+from .mc import _cell_cases
+from .node import Points, cast, tree_leaves, tree_map, upload
+
+_TARGET_CHUNK_POINTS = 2**22
+_BODY_MARK = "//@SDF_BODY@"
+
+
+# --- the recorder -------------------------------------------------------------
+
+
+class _Emitter:
+    """Collects the generated body: one ``const`` statement per op."""
+
+    def __init__(self):
+        self.lines = []
+
+    def var(self, kind, expr):
+        name = "v%d" % len(self.lines)
+        ctype = "T" if kind == "f" else "bool"
+        self.lines.append("  const %s %s = %s;" % (ctype, name, expr))
+        return name
+
+
+def _lit(v):
+    if isinstance(v, (bool, np.bool_)):
+        return "true" if v else "false"
+    v = float(v)
+    if math.isnan(v):
+        return "T(NAN)"
+    if math.isinf(v):
+        return "T(INFINITY)" if v > 0 else "T(-INFINITY)"
+    return "T(%r)" % v
+
+
+def _scalar(expr):
+    a = np.empty((), dtype=object)
+    a[()] = expr
+    return a
+
+
+def _kind_of(v):
+    return "b" if isinstance(v, (bool, np.bool_)) else "f"
+
+
+class Rec:
+    """A symbolic value: an object array of C++ expressions (0-d for a
+    per-point field value, (3,) or (3, 3) for a parameter leaf) of kind
+    ``"f"`` (the float type T) or ``"b"`` (bool)."""
+
+    __slots__ = ("em", "expr", "kind")
+    __hash__ = None
+
+    def __init__(self, em, expr, kind="f"):
+        self.em = em
+        self.expr = _scalar(expr) if isinstance(expr, str) else expr
+        self.kind = kind
+
+    @property
+    def shape(self):
+        return self.expr.shape
+
+    @property
+    def ndim(self):
+        return self.expr.ndim
+
+    def __getitem__(self, idx):
+        sub = self.expr[idx]
+        if not isinstance(sub, np.ndarray):
+            sub = _scalar(sub)
+        return Rec(self.em, sub, self.kind)
+
+    def __bool__(self):
+        raise NotImplementedError(
+            "data-dependent Python control flow cannot be compiled into the "
+            "CUDA eval kernel"
+        )
+
+    # -- elementwise recording --
+    def _ops(self, *args):
+        """Each argument as (object array of C++ expressions, kind)."""
+        out = []
+        for a in args:
+            if isinstance(a, Rec):
+                out.append((a.expr, a.kind))
+            elif isinstance(a, numbers.Number):
+                out.append((_scalar(_lit(a)), _kind_of(a)))
+            elif isinstance(a, torch.Tensor) and a.device.type == "cpu":
+                # A constant the op made (never a parameter: those are Recs).
+                vals = np.vectorize(_lit, otypes=[object])(a.numpy())
+                kind = "b" if a.dtype == torch.bool else "f"
+                out.append((np.asarray(vals, dtype=object), kind))
+            else:
+                return None
+        return out
+
+    def _map(self, fmt, args, kind):
+        ops = self._ops(*args)
+        if ops is None:
+            return NotImplemented
+        if all(o[0].ndim == 0 for o in ops):  # the common per-point case
+            expr = fmt.format(*[o[0][()] for o in ops])
+            return Rec(self.em, self.em.var(kind, expr), kind)
+        arrs = np.broadcast_arrays(*[o[0] for o in ops])
+        res = np.empty(arrs[0].shape, dtype=object)
+        for i in np.ndindex(res.shape):
+            res[i] = self.em.var(kind, fmt.format(*[a[i] for a in arrs]))
+        return Rec(self.em, res, kind)
+
+    def __add__(self, o):
+        return self._map("({} + {})", (self, o), "f")
+
+    def __radd__(self, o):
+        return self._map("({} + {})", (o, self), "f")
+
+    def __sub__(self, o):
+        return self._map("({} - {})", (self, o), "f")
+
+    def __rsub__(self, o):
+        return self._map("({} - {})", (o, self), "f")
+
+    def __mul__(self, o):
+        return self._map("({} * {})", (self, o), "f")
+
+    def __rmul__(self, o):
+        return self._map("({} * {})", (o, self), "f")
+
+    def __truediv__(self, o):
+        if isinstance(o, numbers.Number):
+            # PyTorch's CUDA division by a Python number multiplies by its
+            # reciprocal (exact for the powers of two the ops use).
+            return self._map("({} * (T(1) / {}))", (self, o), "f")
+        return self._map("({} / {})", (self, o), "f")
+
+    def __rtruediv__(self, o):
+        # PyTorch computes ``number / tensor`` as reciprocal(tensor) * number.
+        return self._map("((T(1) / {}) * {})", (self, o), "f")
+
+    def __neg__(self):
+        return self._map("(-{})", (self,), "f")
+
+    def __abs__(self):
+        return self._map("op_abs({})", (self,), "f")
+
+    def __pow__(self, o):
+        fmt = {2: "({0} * {0})", 3: "({0} * {0} * {0})",
+               0.5: "op_sqrt({0})", -1: "(T(1) / {0})",
+               -2: "(T(1) / ({0} * {0}))"}.get(o)
+        if fmt is not None:
+            return self._map(fmt, (self,), "f")
+        return self._map("op_pow({}, {})", (self, o), "f")
+
+    def __rpow__(self, o):
+        if o == 2:
+            return self._map("op_exp2({})", (self,), "f")
+        return self._map("op_pow({}, {})", (o, self), "f")
+
+    def __lt__(self, o):
+        return self._map("({} < {})", (self, o), "b")
+
+    def __le__(self, o):
+        return self._map("({} <= {})", (self, o), "b")
+
+    def __gt__(self, o):
+        return self._map("({} > {})", (self, o), "b")
+
+    def __ge__(self, o):
+        return self._map("({} >= {})", (self, o), "b")
+
+    def __eq__(self, o):
+        return self._map("({} == {})", (self, o), "b")
+
+    def __ne__(self, o):
+        return self._map("({} != {})", (self, o), "b")
+
+    def __and__(self, o):
+        return self._map("({} && {})", (self, o), "b")
+
+    __rand__ = __and__
+
+    def __or__(self, o):
+        return self._map("({} || {})", (self, o), "b")
+
+    __ror__ = __or__
+
+    def __invert__(self):
+        return self._map("(!{})", (self,), "b")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        rec = next(a for a in list(args) + list(kwargs.values())
+                   if isinstance(a, Rec))
+        if func in _UNARY:
+            return rec._map(_UNARY[func], (args[0],), "f")
+        if func in _BINARY:
+            return rec._map(_BINARY[func], args[:2], "f")
+        if func is torch.where:
+            c, a, b = args
+            return rec._map("({} ? {} : {})", (c, a, b), "f")
+        if func is torch.logical_and:
+            return rec._map("({} && {})", args[:2], "b")
+        if func is torch.clamp:
+            x = args[0]
+            lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+            hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+            if lo is not None:
+                x = rec._map("op_max({}, {})", (x, lo), "f")
+            if hi is not None:
+                x = rec._map("op_min({}, {})", (x, hi), "f")
+            return x
+        if func in (torch.zeros_like, torch.ones_like, torch.full_like):
+            v = {torch.zeros_like: 0.0, torch.ones_like: 1.0}.get(func)
+            v = args[1] if v is None else v
+            expr = np.empty(args[0].shape, dtype=object)
+            expr[...] = _lit(v)
+            return Rec(rec.em, expr)
+        name = getattr(func, "__name__", repr(func))
+        raise NotImplementedError(
+            "op %r has no C++ form in the CUDA eval kernel" % name
+        )
+
+
+_UNARY = {
+    torch.abs: "op_abs({})",
+    torch.sqrt: "op_sqrt({})",
+    torch.cos: "op_cos({})",
+    torch.sin: "op_sin({})",
+    torch.round: "op_round({})",
+    torch.sign: "op_sign({})",
+    torch.neg: "(-{})",
+}
+_BINARY = {
+    torch.minimum: "op_min({}, {})",
+    torch.maximum: "op_max({}, {})",
+    torch.atan2: "op_atan2({}, {})",
+    torch.fmod: "op_fmod({}, {})",
+}
+
+
+def _bind(sdf, em):
+    """``sdf`` with each parameter leaf replaced by a Rec reading ``P``,
+    in ``tree_leaves`` order (the order of ``_flat_params``)."""
+    offset = [0]
+
+    def leaf(x):
+        a = np.asarray(x, dtype=np.float64)
+        idx = offset[0] + np.arange(a.size).reshape(a.shape)
+        offset[0] += a.size
+        expr = np.vectorize(lambda i: "P[%d]" % i, otypes=[object])(idx)
+        return Rec(em, np.asarray(expr, dtype=object))
+
+    return tree_map(leaf, sdf)
+
+
+def kernel_source(sdf):
+    """The CUDA source of kernel B1 for ``sdf``'s structure: the template
+    ``csrc/eval_classify.cu`` with the recorded per-point body inserted."""
+    em = _Emitter()
+    node = _bind(sdf, em)
+    p = Points(*[Rec(em, n) for n in ("x", "y", "z")])
+    d = node.fn(node.params, p)
+    if isinstance(d, numbers.Number):
+        d = Rec(em, _lit(d))
+    if not isinstance(d, Rec) or d.shape != () or d.kind != "f":
+        raise NotImplementedError("expression did not record to one value")
+    body = "\n".join(em.lines + ["  return %s;" % d.expr[()]])
+    template = _build.source("eval_classify.cu")
+    return template.replace(_BODY_MARK, body)
+
+
+def _flat_params(sdf, dtype, device):
+    leaves = [np.ravel(np.asarray(x, dtype=np.float64))
+              for x in tree_leaves(sdf)]
+    flat = np.concatenate(leaves) if leaves else np.zeros(1)
+    return upload([flat], dtype, device)[0]
+
+
+# --- the plain pair --------------------------------------------------------------
+
+
+def _axes(X, Y, Z, dtype, device):
+    return upload([np.asarray(a, dtype=np.float64) for a in (X, Y, Z)],
+                  dtype, device)
+
+
+def _eval_volume(sdf, X, Y, Z, dtype, device):
+    """Dense volume evaluation with torch ops on broadcast ``Points``,
+    chunked along x.  X/Y/Z are host float64 axis coordinates."""
+    Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
+    sdf_c = cast(sdf, dtype, device)
+    nx, ny, nz = len(Xt), len(Yt), len(Zt)
+    vol = torch.empty((nx, ny, nz), dtype=dtype, device=device)
+    step = max(1, min(nx, -(-_TARGET_CHUNK_POINTS // (ny * nz))))
+    for i in range(0, nx, step):
+        xs = Xt[i: i + step]
+        p = Points(xs[:, None, None], Yt[None, :, None], Zt[None, None, :])
+        vol[i: i + step] = torch.as_tensor(sdf_c(p)).broadcast_to(
+            (len(xs), ny, nz)
+        )
+    return vol
+
+
+def _eval_classify_plain(sdf, X, Y, Z, dtype, device):
+    vol = _eval_volume(sdf, X, Y, Z, dtype, device)
+    return vol, _cell_cases(vol)
+
+
+# --- kernel B1 -----------------------------------------------------------------
+
+
+def _launch(sdf, X, Y, Z, dtype, device):
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError("eval_and_classify: dtype must be float32 or float64")
+    nx, ny, nz = len(X), len(Y), len(Z)
+    if min(nx, ny, nz) < 2:
+        raise ValueError("eval_and_classify: every axis needs >= 2 samples")
+    src = kernel_source(sdf)
+    lib = _build.load("eval_classify", src)
+    name = "sdf_eval_classify_" + ("f32" if dtype == torch.float32 else "f64")
+    fn = getattr(lib, name)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
+    P = _flat_params(sdf, dtype, device)
+    vol = torch.empty((nx, ny, nz), dtype=dtype, device=device)
+    case = torch.empty((nx - 1, ny - 1, nz - 1), dtype=torch.int32,
+                       device=device)
+    _build.check(
+        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), P.data_ptr(),
+           nx, ny, nz, vol.data_ptr(), case.data_ptr(),
+           _build.stream_ptr(vol.device)),
+        "eval_classify",
+    )
+    eval_and_classify.launches += 1
+    return vol, case
+
+
+def eval_and_classify(sdf, X, Y, Z, dtype, device):
+    """Evaluate + classify the dense grid ``X x Y x Z`` (host float64 axis
+    coordinates) for the uncast expression ``sdf`` in ``dtype``.  Returns
+    ``(vol (nx, ny, nz), case (nx-1, ny-1, nz-1) int32)`` on ``device``:
+    kernel B1 on CUDA, the plain pair on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _eval_classify_plain(sdf, X, Y, Z, dtype, device)
+    if device.type != "cuda":
+        raise ValueError("eval_and_classify: unsupported device %s" % device)
+    return _launch(sdf, X, Y, Z, dtype, device)
+
+
+eval_and_classify.launches = 0
+

@@ -1,0 +1,490 @@
+"""Marching cubes on tensors (counterpart of ``sdf_tpu.core.mc``).
+
+Two phases with one host sync between them, as in the JAX package:
+
+  * ``count_indexed``: per-cell triangle counts (kernel B3, ``ntri_of``)
+    under the cull mask, per-tile totals and the crossing-edge mask --
+    every count the host needs, fetched together;
+  * ``gather_emit_indexed``: given capacities from ``round_capacity``,
+    compact the active cells (kernel B4) and the crossing edges (kernel B5),
+    interpolate one vertex per edge and resolve each triangle's three edge
+    ids to compacted vertex ranks.
+
+Vertices are fractional index coordinates; the engine maps them to world
+space.  Only the fixed separated-ambiguity tables ("fast", internal name
+"default") are ported in this slice; the lewiner tables come with their
+classifier.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import compact
+from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, NTRI_TABLE, TRI_TABLE
+from .node import upload
+
+def round_capacity(n):
+    """Buffer capacity for ``n`` items: the next power of two or 1.5x a
+    power of two (the JAX package's sizes, so padded outputs match)."""
+    n = max(1, int(n))
+    p = 1 << (n - 1).bit_length()
+    if n <= (p // 2) + (p // 4):
+        return (p // 2) + (p // 4)
+    return p
+
+
+class Tables:
+    """Per-variant case-table bundle (the fixed "default" tables only)."""
+
+    def __init__(self, name, tri_table, ntri_table):
+        self.name = name
+        tri_table = np.asarray(tri_table, np.int32)
+        self.tri = tri_table  # (ncase, max_tris, 3), -1 padded
+        self.ntri = np.asarray(ntri_table, np.int32)
+        self.ncase = tri_table.shape[0]
+        self.max_tris = tri_table.shape[1]
+        self.case_bits = int(self.ncase - 1).bit_length()
+        self.tf3 = np.maximum(tri_table, 0)  # padding clamped to edge 0
+        # (ncase * max_tris,) packed 3x4-bit cube-edge ids per (case, slot).
+        self.eid_pack = (
+            self.tf3[:, :, 0] | (self.tf3[:, :, 1] << 4)
+            | (self.tf3[:, :, 2] << 8)
+        ).reshape(-1).astype(np.int32)
+        self._dev = {}
+
+    def on(self, device, name):
+        """A table as a tensor on ``device`` (cached)."""
+        key = (str(device), name)
+        if key not in self._dev:
+            a = getattr(self, name)
+            self._dev[key] = upload([a], torch.int32, device)[0]
+        return self._dev[key]
+
+    def __repr__(self):
+        return f"Tables({self.name!r})"
+
+
+_TABLES = {}
+
+
+def get_tables(variant="default"):
+    """The cached table bundle for an MC variant name ("fast" is the
+    user-facing spelling of "default")."""
+    if variant == "fast":
+        variant = "default"
+    if variant == "lewiner":
+        raise NotImplementedError(
+            "mc_variant='lewiner' is not ported yet (ROADMAP A5/B2); "
+            "pass mc_variant='fast'"
+        )
+    if variant != "default":
+        raise ValueError(
+            f"unknown mc_variant {variant!r}: use 'lewiner' or 'fast'"
+        )
+    if variant not in _TABLES:
+        _TABLES[variant] = Tables("default", TRI_TABLE, NTRI_TABLE)
+    return _TABLES[variant]
+
+
+# --- kernel B3: ntri lookup --------------------------------------------------
+
+
+def _ntri_lib():
+    lib = _build.load("ntri", _build.source("ntri.cu"))
+    if not getattr(lib, "_sdf_typed", False):
+        vp = ctypes.c_void_p
+        lib.sdf_ntri.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int, vp, vp]
+        lib.sdf_ntri.restype = ctypes.c_int
+        lib._sdf_typed = True
+    return lib
+
+
+def _ntri_plain(case, table):
+    """B3's plain version: ``table[case]``, 0 outside the table."""
+    ok = (case >= 0) & (case < table.numel())
+    return torch.where(ok, table[case.clamp(0, table.numel() - 1).long()], 0)
+
+
+def ntri_of(case, variant="default"):
+    """Per-cell triangle counts ``ntri[case]`` (int32, the shape of
+    ``case``).  Kernel B3 on CUDA, the plain lookup on the CPU."""
+    if case.dtype != torch.int32:
+        raise ValueError("case codes must be int32")
+    table = get_tables(variant).on(case.device, "ntri")
+    if case.device.type == "cpu":
+        return _ntri_plain(case, table).to(torch.int32)
+    _build.require_cuda(case, "ntri_of")
+    out = torch.empty_like(case)
+    if case.numel():
+        _build.check(
+            _ntri_lib().sdf_ntri(
+                case.data_ptr(), case.numel(), table.data_ptr(),
+                table.numel(), out.data_ptr(), _build.stream_ptr(case.device),
+            ),
+            "ntri",
+        )
+        ntri_of.launches += 1
+    return out
+
+
+ntri_of.launches = 0
+
+
+def _cell_cases(volume, level=0.0):
+    """Case index per cell: bit c set iff corner c is inside (< level)."""
+    nx, ny, nz = volume.shape
+    case = torch.zeros((nx - 1, ny - 1, nz - 1), dtype=torch.int32,
+                       device=volume.device)
+    for c, (ox, oy, oz) in enumerate(CORNER_OFFSETS.tolist()):
+        corner = volume[ox: nx - 1 + ox, oy: ny - 1 + oy, oz: nz - 1 + oz]
+        case |= (corner < level).to(torch.int32) << c
+    return case
+
+
+# --- indexed emit --------------------------------------------------------------
+
+# Per cube edge: its axis and the (coordinate-wise lower) origin corner.
+_EDGE_AXIS = np.argmax(
+    CORNER_OFFSETS[EDGE_CORNERS[:, 1]] - CORNER_OFFSETS[EDGE_CORNERS[:, 0]],
+    axis=1,
+).astype(np.int64)
+_EDGE_ORIG = CORNER_OFFSETS[EDGE_CORNERS[:, 0]].astype(np.int64)  # (12, 3)
+_EDGE_DEV = {}  # device -> (axis, origin) tensors
+
+
+def _edge_tables(device):
+    key = str(device)
+    if key not in _EDGE_DEV:
+        _EDGE_DEV[key] = tuple(upload([_EDGE_AXIS, _EDGE_ORIG], torch.int64,
+                                      device))
+    return _EDGE_DEV[key]
+
+
+def _edge_ids_of(case_t, slot, variant="default"):
+    """Cube-edge ids of the three vertices of triangle ``slot`` of cell
+    case ``case_t``: three int64 tensors from the packed 3x4-bit table."""
+    tab = get_tables(variant)
+    packed = tab.on(case_t.device, "eid_pack")[case_t * tab.max_tris + slot]
+    return [((packed >> (4 * v)) & 15).to(torch.int64) for v in range(3)]
+
+
+def _edge_gid(e, cx, cy, cz, ny, nz, Sx, Sy):
+    """Global edge id of cube edge ``e`` of the cell at ``(cx, cy, cz)``.
+    Edge ids: x-edges (nx-1, ny, nz), then y-edges (nx, ny-1, nz), then
+    z-edges (nx, ny, nz-1), back to back."""
+    axis_t, orig_t = _edge_tables(e.device)
+    axis = axis_t[e]
+    orig = orig_t[e]  # (n, 3)
+    x = cx + orig[:, 0]
+    y = cy + orig[:, 1]
+    z = cz + orig[:, 2]
+    my = torch.where(axis == 1, ny - 1, ny)
+    mz = torch.where(axis == 2, nz - 1, nz)
+    base = torch.where(axis == 0, 0, torch.where(axis == 1, Sx, Sx + Sy))
+    return base + (x * my + y) * mz + z
+
+
+def _edge_mask(volume, active):
+    """Flat bool mask over all grid edges: sign-crossing AND adjacent to an
+    active cell (so culled regions contribute no stray vertices)."""
+    sign = volume < 0
+
+    def adj(a, axes):
+        # Dilate the active-cell mask by one cell along the two axes
+        # orthogonal to the edge direction: an edge touches up to 4 cells.
+        shape = list(a.shape)
+        for ax in axes:
+            shape[ax] += 2
+        b = torch.zeros(shape, dtype=torch.bool, device=a.device)
+        inner = [slice(None)] * 3
+        for ax in axes:
+            inner[ax] = slice(1, shape[ax] - 1)
+        b[tuple(inner)] = a
+        for ax in axes:
+            lo = [slice(None)] * 3
+            hi = [slice(None)] * 3
+            lo[ax] = slice(0, b.shape[ax] - 1)
+            hi[ax] = slice(1, None)
+            b = b[tuple(lo)] | b[tuple(hi)]
+        return b
+
+    ex = (sign[:-1] != sign[1:]) & adj(active, (1, 2))
+    ey = (sign[:, :-1] != sign[:, 1:]) & adj(active, (0, 2))
+    ez = (sign[:, :, :-1] != sign[:, :, 1:]) & adj(active, (0, 1))
+    return torch.cat([ex.reshape(-1), ey.reshape(-1), ez.reshape(-1)])
+
+
+def compact_cells(case, active, cell_capacity, variant="default"):
+    """Compact the active cells (kernel B4, then B3 on the survivors).
+    Returns ``(ci, cj, ck, cell_case, cell_ntri)``, each
+    ``(cell_capacity,)``: int64 coordinates, int32 case and count."""
+    cshape = case.shape
+    aflat = active.reshape(-1)
+    cell_idx, n_cells = compact.indices_of(aflat, cell_capacity)
+    live = torch.arange(cell_capacity, device=case.device) < n_cells
+    cell_idx = cell_idx.to(torch.int64)
+    cell_case = case.reshape(-1)[cell_idx]
+    cell_ntri = torch.where(live, ntri_of(cell_case, variant), 0)
+    _, cy, cz = cshape
+    ci = cell_idx // (cy * cz)
+    cj = (cell_idx // cz) % cy
+    ck = cell_idx % cz
+    return ci, cj, ck, cell_case, cell_ntri.to(torch.int32)
+
+
+def count_indexed(volume, case, keep, tile, tshape, variant="default"):
+    """Phase 1: every count the host needs.  Returns ``(n_cells,
+    total_tris, n_edges, per_tile, active, emask)``; the first four are
+    device tensors to fetch in ONE transfer, the last two stay for
+    ``gather_emit_indexed``."""
+    ntri_all = ntri_of(case, variant)
+    # Every crossing case of the default tables emits >= 1 triangle.
+    active = keep & (ntri_all > 0)
+    ntri = ntri_all * active.to(torch.int32)
+    cx, cy, cz = ntri.shape
+    px, py, pz = (-cx) % tile, (-cy) % tile, (-cz) % tile
+    padded = torch.zeros((cx + px, cy + py, cz + pz), dtype=torch.int64,
+                         device=ntri.device)
+    padded[:cx, :cy, :cz] = ntri
+    tx, ty, tz = tshape
+    per_tile = padded.reshape(tx, tile, ty, tile, tz, tile).sum(dim=(1, 3, 5))
+    emask = _edge_mask(volume, active)
+    return (
+        active.sum(),
+        ntri.sum(dtype=torch.int64),
+        emask.sum(),
+        per_tile,
+        active,
+        emask,
+    )
+
+
+def gather_emit_indexed(volume, case, active, emask, edge_capacity, capacity,
+                        cell_capacity, packed=False, variant="default"):
+    """Phases 2+3: cell compaction + indexed emit, no host sync.
+
+    ``packed`` selects the wire format (see ``emit_indexed_packed``):
+    False = plain ``(everts, faces)``; True = packed with 21-bit faces;
+    ``"wide"`` = packed vertices but plain faces.  float32 only when not
+    False."""
+    state = compact_cells(case, active, cell_capacity, variant)
+    if packed is not False:
+        return emit_indexed_packed(
+            volume, emask, state, edge_capacity, capacity, cell_capacity,
+            pack_faces=(packed is True), variant=variant,
+        )
+    everts, faces, _ = emit_indexed(
+        volume, emask, state, edge_capacity, capacity, cell_capacity,
+        variant=variant,
+    )
+    return everts, faces
+
+
+def _emit_indexed_core(volume, emask, cell_state, edge_capacity, capacity,
+                       cell_capacity, variant="default"):
+    """Per-edge ``(eidx, ax, exyz, t)`` plus resolved ``faces (3,
+    capacity)`` and ``n_tris`` (see sdf_tpu.core.mc._emit_indexed_core)."""
+    nx, ny, nz = volume.shape
+    Sx = (nx - 1) * ny * nz
+    Sy = nx * (ny - 1) * nz
+
+    eidx, ranktab, _ = compact.indices_and_ranktable_of(emask, edge_capacity)
+    e = eidx.to(torch.int64)
+    ax = (e >= Sx).to(torch.int64) + (e >= Sx + Sy).to(torch.int64)
+
+    def decode(local, My, Mz):
+        z = local % Mz
+        rem = local // Mz
+        return rem // My, rem % My, z
+
+    d0 = decode(e, ny, nz)
+    d1 = decode(e - Sx, ny - 1, nz)
+    d2 = decode(e - Sx - Sy, ny, nz - 1)
+
+    def pick(i):
+        return torch.where(ax == 0, d0[i], torch.where(ax == 1, d1[i], d2[i]))
+
+    ex, ey, ez = pick(0), pick(1), pick(2)
+
+    vflat = volume.reshape(-1)
+    lin_a = (ex * ny + ey) * nz + ez
+    vstride = torch.where(ax == 0, ny * nz, torch.where(ax == 1, nz, 1))
+    va = vflat[lin_a]
+    vb = vflat[lin_a + vstride]
+    denom = va - vb
+    # The zero-crossing formula of the JAX package, term for term.
+    t = torch.clamp(
+        torch.clamp(va / torch.where(denom == 0, 1.0, denom), min=0.0), max=1.0
+    )
+
+    faces, n_tris = _resolve_faces(
+        ranktab, cell_state, capacity, cell_capacity, ny, nz, Sx, Sy, variant
+    )
+    return eidx, ax, (ex, ey, ez), t, faces, n_tris
+
+
+def emit_indexed(volume, emask, cell_state, edge_capacity, capacity,
+                 cell_capacity, variant="default"):
+    """Unique vertices + int32 faces: ``(everts (3, edge_capacity),
+    faces (3, capacity), n_tris)``; ``everts.T[faces.T.reshape(-1)]`` is the
+    triangle soup."""
+    dtype = volume.dtype
+    _, ax, (ex, ey, ez), t, faces, n_tris = _emit_indexed_core(
+        volume, emask, cell_state, edge_capacity, capacity, cell_capacity,
+        variant,
+    )
+    everts = torch.stack(
+        [
+            ex.to(dtype) + t * (ax == 0).to(dtype),
+            ey.to(dtype) + t * (ax == 1).to(dtype),
+            ez.to(dtype) + t * (ax == 2).to(dtype),
+        ],
+        dim=0,
+    )
+    return everts, faces, n_tris
+
+
+def _face_branch(ncells, cbits):
+    """Which per-triangle cell lookup ``_resolve_faces`` uses: 0 packs the
+    cell index and case in one word, 1 packs the cell index and gathers the
+    case, 2 gathers all four (grids past 2^31 cells)."""
+    if ncells < (1 << (31 - cbits)):
+        return 0
+    if ncells < (1 << 31):
+        return 1
+    return 2
+
+
+def _resolve_faces(ranktab, cell_state, capacity, cell_capacity, ny, nz,
+                   Sx, Sy, variant="default"):
+    """Face resolution: per-triangle global edge ids -> compacted ranks
+    (the three branches of sdf_tpu.core.mc._resolve_faces, chosen by the
+    same bounds; all give the same faces)."""
+    ci, cj, ck, cell_case, cell_ntri = cell_state
+    cbits = get_tables(variant).case_bits
+    nx1 = Sx // (ny * nz)
+    ny1, nz1 = ny - 1, nz - 1
+    branch = _face_branch(nx1 * ny1 * nz1, cbits)
+    cell_case = cell_case.to(torch.int64)
+    if branch == 0:
+        w = ((ci * ny1 + cj) * nz1 + ck) * (1 << cbits) + cell_case
+        _, slot, n_tris, wt = compact.ragged_expand(cell_ntri, capacity,
+                                                    fill=w)
+        case_t = wt & ((1 << cbits) - 1)
+        lin = wt >> cbits
+    elif branch == 1:
+        lin = (ci * ny1 + cj) * nz1 + ck
+        ctri, slot, n_tris, lin = compact.ragged_expand(cell_ntri, capacity,
+                                                        fill=lin)
+        case_t = cell_case[ctri]
+    else:
+        ctri, slot, n_tris = compact.ragged_expand(cell_ntri, capacity)
+        cellpack = torch.cat([ci, cj, ck, cell_case])
+        cd = cellpack[
+            torch.cat([ctri + i * cell_capacity for i in range(4)])
+        ]
+        cx = cd[:capacity]
+        cy = cd[capacity: 2 * capacity]
+        cz = cd[2 * capacity: 3 * capacity]
+        case_t = cd[3 * capacity:]
+    if branch != 2:
+        cx = lin // (ny1 * nz1)
+        rem = lin % (ny1 * nz1)
+        cy = rem // nz1
+        cz = rem % nz1
+
+    ev = _edge_ids_of(case_t, slot, variant)
+    gids = [_edge_gid(ev[v], cx, cy, cz, ny, nz, Sx, Sy) for v in range(3)]
+    faces = compact.rank_lookup(ranktab, torch.cat(gids)).reshape(3, capacity)
+    return faces, n_tris
+
+
+# ---------------------------------------------------------------------------
+# Packed readback: vertices travel as (edge id, t bit pattern) and faces as
+# two 32-bit words holding three 21-bit ranks whenever the vertex count fits
+# 21 bits.  The device computes the words as int32 bit patterns; the host
+# views them as uint32 (torch's uint32 support is thin).
+# ---------------------------------------------------------------------------
+
+FACE_PACK_BITS = 21  # 3 * 21 = 63 bits across two words; ne < 2^21
+
+
+def emit_indexed_packed(volume, emask, cell_state, edge_capacity, capacity,
+                        cell_capacity, pack_faces, variant="default"):
+    """``emit_indexed`` with the wire-format outputs.  Returns ``(epack (2,
+    edge_capacity) int32, fpack (2 or 3, capacity) int32)``, each the bit
+    pattern of the JAX package's uint32 arrays; decode with
+    ``unpack_indexed`` after ``.view(np.uint32)``.  float32 volumes only."""
+    if volume.dtype != torch.float32:
+        raise ValueError("packed emit needs a float32 volume")
+    eidx, _, _, t, faces, _ = _emit_indexed_core(
+        volume, emask, cell_state, edge_capacity, capacity, cell_capacity,
+        variant=variant,
+    )
+    epack = torch.stack([eidx.to(torch.int32), t.view(torch.int32)], dim=0)
+    f = faces.to(torch.int64)
+    if pack_faces:
+        B = FACE_PACK_BITS
+        lo_mask = (1 << (32 - B)) - 1  # low 11 bits of f1
+        w0 = (f[0] | ((f[1] & lo_mask) << B)) & 0xFFFFFFFF
+        w1 = ((f[1] >> (32 - B)) | (f[2] << (2 * B - 32))) & 0xFFFFFFFF
+        fpack = compact._to_i32(torch.stack([w0, w1], dim=0))
+    else:
+        fpack = faces.to(torch.int32)
+    return epack, fpack
+
+
+def unpack_indexed(epack, fpack, grid_shape, dtype=np.float32):
+    """Host-side decode of ``emit_indexed_packed`` outputs (numpy uint32,
+    already sliced to live counts).  Returns ``(vh (ne, 3) float64, fh (n, 3)
+    int32)``, bit-identical to slicing ``emit_indexed``'s outputs."""
+    nx, ny, nz = grid_shape
+    Sx = (nx - 1) * ny * nz
+    Sy = nx * (ny - 1) * nz
+    eidx = epack[0].astype(np.int64)
+    t = epack[1].view(np.float32) if epack.dtype == np.uint32 else epack[1]
+
+    # eidx ascends (compaction preserves order), so the three axis blocks
+    # are contiguous slices.
+    b0, b1 = np.searchsorted(eidx, [Sx, Sx + Sy])
+    ft = np.dtype(dtype)
+    vh32 = np.empty((len(eidx), 3), dtype=ft)
+    for a, (sl, base, My, Mz) in enumerate(
+        (
+            (slice(0, b0), 0, ny, nz),
+            (slice(b0, b1), Sx, ny - 1, nz),
+            (slice(b1, None), Sx + Sy, ny, nz - 1),
+        )
+    ):
+        local = eidx[sl] - base
+        z = local % Mz
+        rem = local // Mz
+        exyz = (rem // My, rem % My, z)
+        for c in range(3):
+            # Same op order and precision as the device: base in f32 + t.
+            comp = exyz[c].astype(ft)
+            if c == a:
+                comp = comp + t[sl].astype(ft)
+            vh32[sl, c] = comp
+    vh = vh32.astype(np.float64)
+
+    return vh, unpack_faces(fpack)
+
+
+def unpack_faces(fpack):
+    """Host decode of the (2|3, n) uint32 face wire format -> (n, 3) int32."""
+    if fpack.shape[0] == 3:
+        return fpack.T.astype(np.int32)
+    B = FACE_PACK_BITS
+    w0 = fpack[0].astype(np.uint64)
+    w1 = fpack[1].astype(np.uint64)
+    m = np.uint64((1 << B) - 1)
+    f0 = w0 & m
+    f1 = ((w0 >> np.uint64(B)) | (w1 << np.uint64(32 - B))) & m
+    f2 = (w1 >> np.uint64(2 * B - 32)) & m
+    return np.stack([f0, f1, f2], axis=1).astype(np.int32)

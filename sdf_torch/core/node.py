@@ -1,0 +1,373 @@
+"""Expression-tree core: SDF nodes whose parameters are torch tensors.
+
+The counterpart of ``sdf_tpu.core.node``.  A node carries
+
+  * ``fn``     -- a pure evaluation function ``fn(params, p) -> d``
+  * ``params`` -- a nested dict/list of numeric parameters, which may hold
+                  child SDF nodes (the CSG tree *is* the parameter tree)
+  * ``_k``     -- the optional smooth-blend radius tag
+
+Parameters are float64 numpy arrays at construction; ``cast`` copies the
+tree with every leaf turned into a tensor of the compute dtype on an
+explicit device, just before evaluation.  The leaf order of ``tree_leaves``
+is the JAX package's pytree flatten order (dict keys sorted, ``None``
+holding no leaf, a node's ``params`` before its ``_k``), so
+``load_leaves`` can carry the parameters of an ``sdf_tpu`` expression
+across to the same expression built here.
+
+Evaluation is structure-of-arrays: a ``Points`` holds one broadcastable
+tensor per component.  The public ``(N, dim) -> (N, 1)`` contract lives
+at ``_Node.__call__``.  The same ``fn`` code also runs on the symbolic
+recorder of ``core.eval_classify`` to generate the CUDA kernel's body, so
+ops use plain torch functions and Python operators only.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _shape(x):
+    return tuple(x.shape) if hasattr(x, "shape") else ()
+
+
+class Points:
+    """Structure-of-arrays point batch: one tensor per coordinate component,
+    mutually broadcastable (the grid engine passes ``(nx,1,1), (1,ny,1),
+    (1,1,nz)`` views, so coordinates are never materialized)."""
+
+    __slots__ = ("c",)
+
+    # numpy arrays defer binary ops to Points (``vec - points`` reaches
+    # __rsub__ instead of an elementwise object broadcast).
+    __array_ufunc__ = None
+    __array_priority__ = 1000
+
+    def __init__(self, *c):
+        self.c = tuple(c)
+
+    @property
+    def dim(self):
+        return len(self.c)
+
+    @property
+    def bshape(self):
+        return torch.broadcast_shapes(*[_shape(x) for x in self.c])
+
+    @classmethod
+    def from_array(cls, p):
+        return cls(*[p[..., i] for i in range(p.shape[-1])])
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple) and len(key) == 2:
+            key = key[1]
+        if isinstance(key, slice):
+            return Points(*self.c[key])
+        return self.c[key]
+
+    def __iter__(self):
+        return iter(self.c)
+
+    def _coerce(self, other):
+        """Other as a per-component sequence: Points, (dim,) vector, scalar
+        (see sdf_tpu.core.node.Points._coerce for the N == dim caveat)."""
+        if isinstance(other, Points):
+            return other.c
+        shape = _shape(other)
+        if len(shape) == 1 and shape[0] == self.dim:
+            return tuple(other[i] for i in range(self.dim))
+        return (other,) * self.dim
+
+    def _bin(self, other, op):
+        oc = self._coerce(other)
+        return Points(*[op(a, b) for a, b in zip(self.c, oc)])
+
+    def __add__(self, o):
+        return self._bin(o, lambda a, b: a + b)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._bin(o, lambda a, b: a - b)
+
+    def __rsub__(self, o):
+        return self._bin(o, lambda a, b: b - a)
+
+    def __mul__(self, o):
+        return self._bin(o, lambda a, b: a * b)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._bin(o, lambda a, b: a / b)
+
+    def __neg__(self):
+        return Points(*[-a for a in self.c])
+
+    def __abs__(self):
+        return Points(*[torch.abs(a) for a in self.c])
+
+    def hmax(self):
+        return functools.reduce(torch.maximum, self.c)
+
+    def hmin(self):
+        return functools.reduce(torch.minimum, self.c)
+
+    def hsum(self):
+        return functools.reduce(lambda a, b: a + b, self.c)
+
+
+def as_param(value, dtype=np.float64):
+    """A user-supplied numeric parameter as a float64 numpy leaf; ``cast``
+    turns leaves into tensors of the compute dtype."""
+    return np.asarray(value, dtype=dtype)
+
+
+# --- the parameter tree ----------------------------------------------------
+
+
+def tree_leaves(tree):
+    """Leaves in the JAX package's pytree flatten order."""
+    out = []
+
+    def walk(t):
+        if t is None:
+            return
+        if isinstance(t, _Node):
+            walk(t.params)
+            walk(t._k)
+        elif isinstance(t, dict):
+            for key in sorted(t):
+                walk(t[key])
+        elif isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+        else:
+            out.append(t)
+
+    walk(tree)
+    return out
+
+
+def tree_map(fn, tree):
+    """Copy of ``tree`` with every leaf replaced by ``fn(leaf)``, visited in
+    ``tree_leaves`` order."""
+    if tree is None:
+        return None
+    if isinstance(tree, _Node):
+        obj = object.__new__(type(tree))
+        obj.fn = tree.fn
+        obj.params = tree_map(fn, tree.params)
+        obj._k = tree_map(fn, tree._k)
+        return obj
+    if isinstance(tree, dict):
+        mapped = {key: tree_map(fn, tree[key]) for key in sorted(tree)}
+        return {key: mapped[key] for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    return fn(tree)
+
+
+def resolve_device(device):
+    """``None`` means ``"cuda"``; a CUDA device without a card raises (no
+    quiet fall back to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+def upload(arrays, dtype, device):
+    """Host arrays as ``dtype`` tensors on ``device``.  On a CUDA device all
+    of them travel in one copy from pinned memory that does not wait for
+    the host (a plain ``torch.as_tensor`` copy synchronizes)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+                for a in arrays]
+    host = [torch.from_numpy(np.ascontiguousarray(a)).to(dtype) for a in arrays]
+    if not host:
+        return []
+    flat = torch.cat([h.reshape(-1) for h in host]).pin_memory()
+    flat = flat.to(device, non_blocking=True)
+    out, at = [], 0
+    for h in host:
+        out.append(flat[at: at + h.numel()].view(h.shape))
+        at += h.numel()
+    return out
+
+
+def cast(node, dtype, device):
+    """Copy of an SDF expression with every numeric leaf a ``dtype`` tensor
+    on ``device`` (host leaves uploaded together, see ``upload``)."""
+    host = [x for x in tree_leaves(node) if not isinstance(x, torch.Tensor)]
+    it = iter(upload(host, dtype, device))
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype=dtype, device=device)
+        return next(it)
+
+    return tree_map(leaf, node)
+
+
+def load_leaves(node, leaves):
+    """Copy of ``node`` carrying ``leaves``: numpy arrays in the flatten
+    order of the ``sdf_tpu`` expression built by the same constructor calls,
+    i.e. ``jax.tree_util.tree_leaves(cast(f, dtype))``.  As with a JAX
+    unflatten, a subtree shared by several parents becomes one copy per
+    occurrence, each with its own leaves.  Raises on a count or shape
+    mismatch."""
+    leaves = list(leaves)
+    count = len(tree_leaves(node))
+    if len(leaves) != count:
+        raise ValueError("expected %d leaves, got %d" % (count, len(leaves)))
+    it = iter(leaves)
+
+    def put(old):
+        new = np.asarray(next(it), dtype=np.float64)
+        if new.shape != np.shape(old):
+            raise ValueError(
+                "leaf shape %s does not match %s" % (new.shape, np.shape(old))
+            )
+        return new
+
+    return tree_map(put, node)
+
+
+# --- nodes -----------------------------------------------------------------
+
+
+class _Node:
+    """Shared machinery for SDF2/SDF3 nodes."""
+
+    _registry: dict = {}
+
+    def __init__(self, fn, params):
+        self.fn = fn
+        self.params = params
+        self._k = None
+
+    def __call__(self, p, device=None):
+        if isinstance(p, Points):
+            return self.fn(self.params, p)
+        # Public contract: (N, dim) -> (N, 1) in the points' dtype.  A tensor
+        # stays on its device unless ``device`` is given; other points go to
+        # ``device``, which is the card when None (see ``resolve_device``).
+        if not isinstance(p, torch.Tensor) or device is not None:
+            p = torch.as_tensor(p, device=resolve_device(device))
+        node = cast(self, p.dtype, p.device)
+        n = p.shape[0] if p.ndim == 2 else None
+        if p.ndim == 2 and p.shape[0] == p.shape[1]:
+            # N == dim is ambiguous with a (dim,) parameter vector inside
+            # Points._coerce: pad one duplicate row (as the JAX package).
+            p = torch.cat([p, p[:1]], dim=0)
+        pts = Points.from_array(p)
+        d = node.fn(node.params, pts)
+        d = torch.as_tensor(d).broadcast_to(pts.bshape).reshape(-1, 1)
+        return d if n is None or d.shape[0] == n else d[:n]
+
+    def k(self, k=None):
+        self._k = k
+        return self
+
+    def __getattr__(self, name):
+        ops = type(self)._registry
+        if name in ops:
+            return functools.partial(ops[name], self)
+        raise AttributeError(name)
+
+    def __or__(self, other):
+        return type(self)._registry["union"](self, other)
+
+    def __and__(self, other):
+        return type(self)._registry["intersection"](self, other)
+
+    def __sub__(self, other):
+        return type(self)._registry["difference"](self, other)
+
+
+class SDF3(_Node):
+    """A 3D signed distance field: points ``(N, 3)`` -> distances ``(N, 1)``."""
+
+    _registry = {}
+
+    def generate(self, *args, **kwargs):
+        from . import engine
+
+        return engine.generate(self, *args, **kwargs)
+
+    def generate_mesh(self, *args, **kwargs):
+        from . import engine
+
+        return engine.generate_mesh(self, *args, **kwargs)
+
+    def save(self, path, *args, **kwargs):
+        from . import engine
+
+        return engine.save(path, self, *args, **kwargs)
+
+
+class SDF2(_Node):
+    """A 2D signed distance field: points ``(N, 2)`` -> distances ``(N, 1)``."""
+
+    _registry = {}
+
+
+def node_k(node):
+    """Evaluation-time read of a node's smooth-k tag (None if untagged)."""
+    return getattr(node, "_k", None) if isinstance(node, _Node) else None
+
+
+def _make_ctor(cls, builder):
+    @functools.wraps(builder)
+    def wrapper(*args, **kwargs):
+        out = builder(*args, **kwargs)
+        if isinstance(out, _Node):
+            return out
+        fn, params = out
+        return cls(fn, params)
+
+    return wrapper
+
+
+def sdf3(builder):
+    """Wrap a builder returning ``(fn, params)`` into an SDF3 constructor."""
+    return _make_ctor(SDF3, builder)
+
+
+def sdf2(builder):
+    return _make_ctor(SDF2, builder)
+
+
+def op3(builder):
+    """Like ``sdf3`` but also registers the op as an SDF3 method."""
+    wrapper = _make_ctor(SDF3, builder)
+    SDF3._registry[builder.__name__] = wrapper
+    return wrapper
+
+
+def op2(builder):
+    wrapper = _make_ctor(SDF2, builder)
+    SDF2._registry[builder.__name__] = wrapper
+    return wrapper
+
+
+def op32(builder):
+    """A 3D -> 2D operation: registered on SDF3, returns SDF2."""
+    wrapper = _make_ctor(SDF2, builder)
+    SDF3._registry[builder.__name__] = wrapper
+    return wrapper
+
+
+def op23(builder):
+    """A 2D -> 3D operation: registered on SDF2, returns SDF3."""
+    wrapper = _make_ctor(SDF3, builder)
+    SDF2._registry[builder.__name__] = wrapper
+    return wrapper

@@ -1,0 +1,109 @@
+"""Dense eval + classify (kernel B1): the port's plain version against the
+JAX package's Pallas kernel in interpret mode, on odd-sized grids.
+
+Tolerances:
+  * case codes: bit-equal.
+  * volumes: |diff| <= 8 eps of the dtype (values and coordinates are of
+    order 1, so this is a few ulps of the operands; a near-zero result of
+    a cancellation can differ by more ulps of itself).  The Pallas kernel
+    traces through XLA, which on
+    the CPU contracts multiply-adds into FMAs; the port never contracts (its
+    CUDA kernel is built with -fmad=false to equal the plain version), so
+    values differ by rounding of the contracted terms.  Against the JAX
+    expression evaluated eagerly the port is bit-equal (test_torch_ops.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sdf_tpu as st
+import sdf_torch as sp
+from sdf_tpu.core import pallas_eval
+from sdf_tpu.core.node import cast as jcast
+from sdf_torch.core import eval_classify as ec
+from sdf_torch.core import mc as tmc
+
+import torch_helpers as th
+
+MODELS = {
+    "example": th.example,
+    "smooth": lambda m: m.sphere(0.6).union(m.box(0.8).translate((0.2, 0, 0)), k=0.2),
+    "rounded": lambda m: m.rounded_cylinder(0.5, 0.1, 1.0).orient(m.Y),
+}
+
+
+def _grid():
+    # 17 x 19 x 23 samples, not multiples of any block size.
+    return (np.linspace(-1.1, 1.1, 17), np.linspace(-1.05, 1.15, 19),
+            np.linspace(-1.2, 1.0, 23))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_plain_matches_pallas_interpret(model, dtype):
+    X, Y, Z = _grid()
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    build = MODELS[model]
+    vj, cj = pallas_eval.eval_and_classify(
+        jcast(build(st), jd), X, Y, Z, jd, bz=4, interpret=True
+    )
+    vt, ct = ec.eval_and_classify(build(sp), X, Y, Z, td, "cpu")
+    assert vt.shape == (17, 19, 23) and ct.shape == (16, 18, 22)
+    assert vt.dtype == td and ct.dtype == torch.int32
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    eps = np.finfo(dtype).eps
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0, atol=8 * eps)
+
+
+def test_cell_cases_match_jax():
+    """Given the same volume, the case grid is bit-equal."""
+    from sdf_tpu.core import mc as jmc
+
+    rng = np.random.default_rng(0)
+    vol = rng.normal(size=(9, 10, 11))
+    vol[2, 3, 4] = 0.0  # a sample exactly on the level: outside
+    np.testing.assert_array_equal(
+        tmc._cell_cases(torch.as_tensor(vol)).numpy(),
+        np.asarray(jmc._cell_cases(jnp.asarray(vol))),
+    )
+
+
+def test_generated_body_on_grid():
+    """The kernel body (numpy-interpreted) over the grid equals the plain
+    volume bit for bit, in both dtypes, and the source names both entry
+    points."""
+    X, Y, Z = _grid()
+    f = th.example(sp)
+    src = ec.kernel_source(f)
+    assert "sdf_eval_classify_f32" in src and "sdf_eval_classify_f64" in src
+    for td, nd in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        vt, _ = ec.eval_and_classify(f, X, Y, Z, td, "cpu")
+        P = ec._flat_params(f, td, "cpu").numpy()
+        x, y, z = (a.astype(nd) for a in (X, Y, Z))
+        got = th.run_body(src, x[:, None, None], y[None, :, None],
+                          z[None, None, :], P)
+        np.testing.assert_array_equal(np.broadcast_to(got, vt.shape), vt.numpy())
+
+
+def test_source_depends_on_structure_not_values():
+    """Parameters travel in P: the same structure with other values gives
+    the same source (and so reuses the compiled library)."""
+    a = ec.kernel_source(sp.sphere(1.0) & sp.box(1.5))
+    b = ec.kernel_source(sp.sphere(0.7) & sp.box(1.2))
+    c = ec.kernel_source(sp.sphere(1.0) | sp.box(1.5))
+    assert a == b
+    assert a != c
+
+
+def test_unsupported_op_names_itself():
+    f = sp.sphere(1.0)
+    inner = f.fn
+
+    def fn(q, p):
+        return torch.erf(inner(q, p))
+
+    g = sp.SDF3(fn, f.params)
+    with pytest.raises(NotImplementedError, match="erf"):
+        ec.kernel_source(g)

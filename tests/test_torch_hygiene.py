@@ -1,0 +1,157 @@
+"""The port stands alone: no JAX, no sdf_tpu, no quiet CPU fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+KERNEL_MODULES = [
+    "sdf_torch._build",
+    "sdf_torch.core.eval_classify",
+    "sdf_torch.core.mc",
+    "sdf_torch.core.compact",
+]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, sdf_torch\n"
+        "from sdf_torch import *\n"
+        "import sdf_torch.core.engine, sdf_torch.core.eval_classify\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'jaxlib', 'sdf_tpu'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_name_no_jax():
+    """No module of the port imports jax or sdf_tpu, even lazily."""
+    pkg = os.path.join(ROOT, "sdf_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as fp:
+                    for line in fp:
+                        s = line.strip()
+                        if s.startswith(("import ", "from ")):
+                            assert "jax" not in s and "sdf_tpu" not in s, (
+                                name, s)
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_modules_import_without_nvcc(module):
+    env = dict(os.environ, PATH="/nonexistent")
+    env.pop("NVCC", None)
+    r = subprocess.run([sys.executable, "-c", "import " + module], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
+    import sdf_torch as sp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sp.sphere(1).generate(samples=2**10, verbose=False, mc_variant="fast",
+                              device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sp.sphere(1).generate(samples=2**10, verbose=False, mc_variant="fast")
+
+
+def test_point_call_defaults_to_card(monkeypatch):
+    """``f(points)`` puts host points on the card unless told otherwise;
+    without a card that raises.  A tensor keeps its own device."""
+    import sdf_torch as sp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.array([[0.0, 0.0, 0.0], [2.0, 0.0, 0.0]])
+    f = sp.sphere(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        f(pts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        f(torch.as_tensor(pts), device="cuda")
+    want = np.array([[-1.0], [1.0]])
+    np.testing.assert_array_equal(f(pts, device="cpu").numpy(), want)
+    np.testing.assert_array_equal(f(torch.as_tensor(pts)).numpy(), want)
+
+
+def test_wrappers_never_fall_back():
+    """A tensor on a device that is neither the CPU nor CUDA is refused, not
+    computed by the plain version."""
+    from sdf_torch.core import compact, eval_classify, mc
+
+    meta_case = torch.zeros(16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        mc.ntri_of(meta_case)
+    with pytest.raises(ValueError):
+        compact.indices_and_ranktable_of(
+            torch.zeros(16, dtype=torch.bool, device="meta"), 4
+        )
+    X = np.linspace(-1, 1, 4)
+    with pytest.raises(ValueError):
+        eval_classify.eval_and_classify(
+            __import__("sdf_torch").sphere(1), X, X, X, torch.float32, "meta"
+        )
+
+
+def test_launch_counters_start_at_zero_on_cpu():
+    """CPU runs use the plain versions and count no launches."""
+    import sdf_torch as sp
+    from sdf_torch.core import compact, eval_classify, mc
+
+    wrappers = [eval_classify.eval_and_classify, mc.ntri_of,
+                compact.indices_of, compact.indices_and_ranktable_of]
+    before = [w.launches for w in wrappers]
+    sp.sphere(1).generate(samples=2**12, verbose=False, mc_variant="fast",
+                          device="cpu")
+    assert [w.launches for w in wrappers] == before
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    from sdf_torch import _build
+
+    monkeypatch.delenv("NVCC", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
+
+
+def test_build_many_starts_one_nvcc_per_distinct_source(monkeypatch, tmp_path):
+    """Identical sources share one build; every item gets its library path.
+    A stand-in compiler records its calls and writes the output file."""
+    from sdf_torch import _build
+
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "echo \"$@\" >> %s\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then touch \"$2\"; fi\n"
+        "  shift\n"
+        "done\n" % log
+    )
+    fake.chmod(0o755)
+    monkeypatch.setenv("NVCC", str(fake))
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    items = [("a", "int a;"), ("b", "int b;"), ("a", "int a;")]
+    paths = _build.build_many(items)
+    assert len(paths) == 3 and paths[0] == paths[2] != paths[1]
+    assert all(p.exists() for p in paths)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2
+    assert all("-fmad=false" in c and "arch=compute_90a,code=sm_90a" in c
+               for c in calls)
+    # a second request finds the libraries and compiles nothing
+    _build.build_many(items)
+    assert len(log.read_text().splitlines()) == 2

@@ -1,0 +1,152 @@
+"""Shared helpers of the tests that hold ``sdf_torch`` against ``sdf_tpu``.
+
+Inputs are made with numpy from a seed and handed to both packages;
+results come back as numpy arrays.
+"""
+
+import hashlib
+import re
+
+import numpy as np
+
+
+def example(m):
+    """The canonical example model (examples/example.py) built from the
+    package ``m`` (sdf_tpu or sdf_torch)."""
+    f = m.sphere(1) & m.box(1.5)
+    c = m.cylinder(0.5)
+    f -= c.orient(m.X) | c.orient(m.Y) | c.orient(m.Z)
+    return f
+
+
+def op_cases():
+    """Every ported primitive and op: name -> (builder taking the package
+    sdf_tpu or sdf_torch, tolerance class of tests/test_torch_ops.py)."""
+    return {
+        "sphere": (lambda m: m.sphere(0.8, center=(0.1, 0.2, -0.1)), "exact"),
+        "plane": (lambda m: m.plane((1, 2, 3), (0.1, 0, 0)), "exact"),
+        "slab": (lambda m: m.slab(x0=-0.5, z1=0.4, y0=-0.3), "exact"),
+        "box": (lambda m: m.box((1, 0.8, 0.6), center=(0.1, 0, 0)), "exact"),
+        "box_ab": (lambda m: m.box(a=(-0.5, -0.4, -0.3), b=(0.5, 0.3, 0.6)), "exact"),
+        "rounded_box": (lambda m: m.rounded_box((1, 0.8, 0.6), 0.1), "exact"),
+        "wireframe_box": (lambda m: m.wireframe_box((1, 0.8, 0.6), 0.05), "exact"),
+        "torus": (lambda m: m.torus(0.6, 0.2), "exact"),
+        "capsule": (lambda m: m.capsule((-0.5, 0, 0), (0.5, 0.2, 0.1), 0.2), "exact"),
+        "cylinder": (lambda m: m.cylinder(0.4), "exact"),
+        "capped_cylinder": (
+            lambda m: m.capped_cylinder((-0.5, 0, 0), (0.5, 0.1, 0), 0.3), "exact"),
+        "rounded_cylinder": (lambda m: m.rounded_cylinder(0.4, 0.1, 0.8), "exact"),
+        "capped_cone": (
+            lambda m: m.capped_cone((-0.5, 0, 0), (0.5, 0, 0.1), 0.4, 0.2), "exact"),
+        "rounded_cone": (lambda m: m.rounded_cone(0.4, 0.2, 0.8), "exact"),
+        "ellipsoid": (lambda m: m.ellipsoid((0.8, 0.6, 0.4)), "exact"),
+        "pyramid": (lambda m: m.pyramid(1.0), "exact"),
+        "tetrahedron": (lambda m: m.tetrahedron(0.7), "exact"),
+        "octahedron": (lambda m: m.octahedron(0.7), "exact"),
+        "dodecahedron": (lambda m: m.dodecahedron(0.7), "exact"),
+        "icosahedron": (lambda m: m.icosahedron(0.7), "exact"),
+        "translate": (lambda m: m.sphere(0.5).translate((0.1, 0.2, 0.3)), "exact"),
+        "scale": (lambda m: m.sphere(0.5).scale((1, 2, 0.5)), "exact"),
+        "rotate": (lambda m: m.box(0.8).rotate(0.3, (1, 1, 0)), "exact"),
+        "rotate_to": (lambda m: m.box(0.8).rotate_to(m.X, (1, 1, 1)), "exact"),
+        "orient": (lambda m: m.cylinder(0.3).orient(m.X), "exact"),
+        "circular_array": (lambda m: m.sphere(0.2).circular_array(5, 0.6), "approx"),
+        "elongate": (lambda m: m.sphere(0.3).elongate((0.2, 0.1, 0)), "exact"),
+        "twist": (lambda m: m.box((0.6, 0.3, 1)).twist(1.0), "approx"),
+        "bend": (lambda m: m.box((1, 0.3, 0.3)).bend(0.5), "approx"),
+        "bend_linear": (
+            lambda m: m.capsule((0, 0, -0.5), (0, 0, 0.5), 0.2).bend_linear(
+                (0, 0, -0.5), (0, 0, 0.5), (0.3, 0, 0), m.ease.in_out_quad),
+            "exact"),
+        "bend_radial": (
+            lambda m: m.box((1, 1, 0.2)).bend_radial(0.2, 0.8, 0.2, m.ease.in_out_sine),
+            "approx"),
+        "transition_linear": (
+            lambda m: m.box(0.8).transition_linear(m.sphere(0.5)), "exact"),
+        "transition_radial": (
+            lambda m: m.box(0.8).transition_radial(m.sphere(0.5)), "approx"),
+        "wrap_around": (lambda m: m.box((1, 0.2, 0.2)).wrap_around(-0.5, 0.5), "approx"),
+        "union": (lambda m: m.sphere(0.5) | m.box(0.7).translate((0.3, 0, 0)), "exact"),
+        "difference": (lambda m: m.box(0.8) - m.sphere(0.5), "exact"),
+        "intersection": (lambda m: m.box(0.8) & m.sphere(0.55), "exact"),
+        "union_k": (lambda m: m.sphere(0.5).union(m.box(0.7), k=0.1), "exact"),
+        "difference_k": (lambda m: m.box(0.8).difference(m.sphere(0.5), k=0.1), "exact"),
+        "intersection_k": (
+            lambda m: m.box(0.8).intersection(m.sphere(0.55), k=0.1), "exact"),
+        "tag_k": (lambda m: m.sphere(0.5) | m.box(0.7).k(0.2), "exact"),
+        "blend": (lambda m: m.sphere(0.5).blend(m.box(0.7)), "exact"),
+        "negate": (lambda m: m.sphere(0.5).negate(), "exact"),
+        "dilate": (lambda m: m.sphere(0.5).dilate(0.1), "exact"),
+        "erode": (lambda m: m.sphere(0.5).erode(0.1), "exact"),
+        "shell": (lambda m: m.sphere(0.5).shell(0.1), "exact"),
+        "repeat": (lambda m: m.sphere(0.1).repeat(0.3, count=2, padding=1), "exact"),
+        "ease_cubic": (
+            lambda m: m.box((1, 0.3, 0.3)).bend_linear(
+                (-0.5, 0, 0), (0.5, 0, 0), (0, 0.2, 0), m.ease.in_out_cubic),
+            "exact"),
+        "ease_bounce": (
+            lambda m: m.box((1, 0.3, 0.3)).bend_linear(
+                (-0.5, 0, 0), (0.5, 0, 0), (0, 0.2, 0), m.ease.in_out_bounce),
+            "exact"),
+        "ease_expo": (
+            lambda m: m.box((1, 0.3, 0.3)).bend_linear(
+                (-0.5, 0, 0), (0.5, 0, 0), (0, 0.2, 0), m.ease.in_out_expo),
+            "approx"),
+        "example": (example, "exact"),
+    }
+
+
+def soup_hash(pts):
+    """Canonical triangle-soup sha256 (tests/test_topology_2p24.py)."""
+    tris = np.asarray(pts, np.float64).round(9).reshape(-1, 9)
+    return hashlib.sha256(tris[np.lexsort(tris.T[::-1])].tobytes()).hexdigest()
+
+
+# --- a numpy interpreter for the generated CUDA eval body -------------------
+
+_TERNARY = re.compile(r"\((\S+) \? (\S+) : (\S+)\)")
+
+
+def _py(expr):
+    expr = _TERNARY.sub(r"_where(\1, \2, \3)", expr)
+    expr = expr.replace("&&", "&").replace("||", "|").replace("(!", "(~")
+    expr = re.sub(r"\btrue\b", "_true", expr)
+    expr = re.sub(r"\bfalse\b", "_false", expr)
+    return expr.replace("INFINITY", "_inf").replace("NAN", "_nan")
+
+
+def _nanmin(a, b):
+    return np.where(a != a, a, np.where(b != b, b, np.fmin(a, b)))
+
+
+def _nanmax(a, b):
+    return np.where(a != a, a, np.where(b != b, b, np.fmax(a, b)))
+
+
+def run_body(src, x, y, z, P):
+    """Evaluate the ``sdf_point`` body of a generated kernel source with
+    numpy, elementwise and in IEEE arithmetic, on broadcastable coordinate
+    arrays ``x, y, z`` and the flat parameter array ``P`` (all one float
+    dtype).  The CUDA kernel itself only runs on the card; this checks on
+    the CPU that the recorded statements compute what the expression's
+    torch code computes."""
+    dt = P.dtype.type
+    start = src.index("sdf_point(")
+    body = src[src.index("{", start) + 1: src.index("\n}", start)]
+    env = {
+        "x": x, "y": y, "z": z, "P": P, "T": dt,
+        "_where": np.where, "_true": np.True_, "_false": np.False_,
+        "_inf": np.inf, "_nan": np.nan,
+        "op_min": _nanmin, "op_max": _nanmax, "op_sqrt": np.sqrt,
+        "op_abs": np.abs, "op_cos": np.cos, "op_sin": np.sin,
+        "op_atan2": np.arctan2, "op_round": np.rint, "op_fmod": np.fmod,
+        "op_pow": np.power, "op_exp2": np.exp2, "op_sign": np.sign,
+    }
+    with np.errstate(all="ignore"):
+        for line in body.strip().splitlines():
+            line = line.strip()
+            if line.startswith("return "):
+                return np.asarray(eval(_py(line[7:-1]), env), dtype=dt)
+            m = re.match(r"const (?:T|bool) (v\d+) = (.*);$", line)
+            env[m.group(1)] = eval(_py(m.group(2)), env)
+    raise ValueError("no return statement in the generated body")
