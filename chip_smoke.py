@@ -16,24 +16,77 @@ Phases, each printing its own lines:
      same function, that call's time;
   4. generate() of the example model at samples=2**22 in float32 with
      mc_variant="fast": 291,028 triangles, a soup bit-equal to the port's
-     own device="cpu" run, every kernel launched, the warm time;
+     own device="cpu" run, every kernel of that path launched, the warm time;
   5. the same at 2**24 in float64: 731,152 triangles and the canonical soup
-     sha256 pinned by tests/test_topology_2p24.py.
+     sha256 pinned by tests/test_topology_2p24.py;
+  6. generate() AT ITS DEFAULTS (mc_variant="lewiner") at 2**22 in float32:
+     291,028 triangles, a soup bit-equal to the device="cpu" run, all five
+     kernels launched, no conflicted cell, the first call against the
+     second (memoized) call, the warm time and the profiled idle share;
+  7. the same at 2**24 in float64: 731,152 triangles, the pinned soup, and
+     the extended-case grid of kernel B2 bit-equal to its plain version on
+     the same volume, its sha256 printed beside the pin of
+     tests/test_topology_2p24.py;
+  8. the saddle (gyroid) model at 2**22 in float32 under both variants:
+     triangle counts and soups differ, and kernel B1 is bit-equal to its
+     plain version on this model (sin and cos on the card).
 Then one JSON line with every kernel, the card line again, and last the
 result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 """
 
+import cProfile
 import hashlib
 import json
+import os
+import pstats
 import statistics
 import subprocess
 import sys
 import time
 
 SOUP_2P24 = "54d4ad9c22a8ce6bb77d8b763e2abb6878eda56ece4a40ea8aa274802b698ca3"
+EXT_GRID_2P24 = "3fb04083920066edbaef61d2d80986b926941df188874e34fdda3b447eb73fcc"
 TRIS_2P22 = 291028
 TRIS_2P24 = 731152
+
+# Operations per cell of the fused classify_ext kernel, counted from its
+# body (csrc/classify_ext.cu): 103 before the roots, 213 for each of the two
+# roots, 54 for the six face tests, 8 level shifts, 15 for the combine.
+CLASSIFY_EXT_OPS_PER_CELL = 103 + 2 * 213 + 54 + 8 + 15
+
+# Degenerate cells of the example model (flat faces: boundary double roots)
+# and an exact interior tie at four scales; corner order CORNER_OFFSETS.
+SPECIAL_CELLS = [
+    [0.3580868897091918, 0.3258959235173755, 0.3113351974228378,
+     0.3499999999999992, 0.3499999999999992, 0.30999999999999517,
+     0.30999999999999517, 0.3499999999999992],
+    [-0.05000000000000071, -0.08309518948453065, -0.04332310828824326,
+     -0.04332310828824326, -0.05000000000000071, -0.0803447251418774,
+     -0.040370243444249, -0.040370243444249],
+    [0.3499999999999992, 0.3499999999999992, 0.3499999999999992,
+     0.35572858640658467, 0.30999999999999517, 0.30999999999999517,
+     0.30999999999999517, 0.32348026052524403],
+    [0.23336936884292925, 0.2300000000000022, 0.2300000000000022,
+     0.2300000000000022, 0.27000000000000046, 0.27000000000000046,
+     0.27000000000000046, 0.27000000000000046],
+    [0.23923190379189396, 0.23923190379189574, 0.23923190379189574,
+     0.19933407243254475, 0.2331667187174724, 0.23316671871747374,
+     0.23316671871747374, 0.19405882918443362],
+    [0.11337325277733967, 0.11767616061182906, 0.08719823399415105,
+     0.08277421469112767, 0.10999999999999943, 0.10999999999999943,
+     0.0699999999999994, 0.0699999999999994],
+    [0.20470353879533149, 0.18999999999999995, 0.16894109285506342,
+     0.20470353879533149, 0.22143223445631932, 0.18999999999999995,
+     0.183772233983162, 0.22143223445631932],
+    [-0.0035871324805683003, -0.043323108288245926, -0.00999999999999801,
+     -0.0035871324805683003, -0.009901951359280403, -0.04918120870983955,
+     -0.00999999999999801, -0.009901951359280403],
+    [0.2729493312775664, 0.30999999999999517, 0.3174217244299484,
+     0.28545711713771027, 0.27000000000000046, 0.30999999999999517,
+     0.30999999999999517, 0.27000000000000046],
+] + [[v * s for v in (1.0, 0.0, -1.0, 0.0, 0.0, -1.0, 2.0, -1.0)]
+     for s in (1.0, 0.1, 1 / 3, 0.3141592653589793)]
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor-core peaks.
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +232,19 @@ def check(cond, what):
     print("  ok: " + what, flush=True)
 
 
+def special_volumes(dtype, device):
+    """SPECIAL_CELLS as a batch of (2, 2, 2) volumes: (N, 2, 2, 2)."""
+    import numpy as np
+    import torch
+
+    from sdf_torch.core.mc_tables import CORNER_OFFSETS
+
+    vols = np.zeros((len(SPECIAL_CELLS), 2, 2, 2))
+    for ci, (ox, oy, oz) in enumerate(CORNER_OFFSETS.tolist()):
+        vols[:, ox, oy, oz] = [c[ci] for c in SPECIAL_CELLS]
+    return torch.as_tensor(vols, dtype=dtype, device=device)
+
+
 def grid_axes(f, samples, dtype):
     """The grid generate() builds (bounds, then np.arange per axis)."""
     import numpy as np
@@ -200,7 +266,8 @@ def main():
     try:
         import sdf_torch as sp
         from sdf_torch import _build
-        from sdf_torch.core import compact, eval_classify, mc
+        from sdf_torch.core import compact, engine, eval_classify, mc, mc33
+        from sdf_torch.models import zoo
     except ImportError as e:
         print("chip_smoke: the sdf_torch package is missing: %s" % e,
               file=sys.stderr)
@@ -223,8 +290,10 @@ def main():
     t0 = time.time()
     libs = _build.build_many([
         ("eval_classify", eval_classify.kernel_source(f)),
+        ("eval_classify", eval_classify.kernel_source(zoo.saddle())),
         ("ntri", _build.source("ntri.cu")),
         ("compact", _build.source("compact.cu")),
+        ("classify_ext", _build.source("classify_ext.cu")),
     ])
     print("built %d libraries in %.1f s: %s" % (
         len(libs), time.time() - t0, ", ".join(p.name for p in libs)))
@@ -264,32 +333,116 @@ def main():
                 library_ms=None,
             )
             case32, vol32 = ck, vk
+        else:
+            case64, vol64 = ck, vk
 
-    # B3: all 256 codes + random codes, then the main path's case grid.
-    table = mc.get_tables("fast").on(dev, "ntri")
+    # B2, the table-only kernel: the full 256 x 64 x 9 domain and a ragged
+    # random tail with cases outside the table; then timed on the main
+    # path's cell count.
     rng = np.random.default_rng(0)
-    codes = torch.as_tensor(np.concatenate(
-        [np.arange(256), rng.integers(0, 256, 100003), [256, -1]]
-    ).astype(np.int32), device=dev)
-    got, want = mc.ntri_of(codes), mc._ntri_plain(codes, table)
+    extras = np.asarray([fb | (ib << 6) for ib in range(9)
+                         for fb in range(64)], np.int32)
+    cdom = np.concatenate([np.repeat(np.arange(256), len(extras)),
+                           rng.integers(-3, 260, 100003)]).astype(np.int32)
+    edom = np.concatenate([np.tile(extras, 256),
+                           rng.integers(0, 1024, 100003)]).astype(np.int32)
+    cdom, edom = (torch.as_tensor(a, device=dev) for a in (cdom, edom))
+    got, want = mc33.ext_from_bits(cdom, edom), mc33._ext_from_bits_plain(cdom, edom)
     check(torch.equal(got, want),
-          "B3 ntri: 256 codes + random codes equal to plain")
-    err = max_abs_diff([(got, want)])
-    got, want = mc.ntri_of(case32), mc._ntri_plain(case32, table)
-    check(torch.equal(got, want), "B3 ntri: main-path case grid equal to plain")
-    err = max(err, max_abs_diff([(got, want)]))
+          "B2 ext_from_bits: 256 x 64 x 9 domain + random tail equal to plain")
     n = case32.numel()
-    ms = device_ms(lambda: mc.ntri_of(case32))
-    pms = device_ms(lambda: mc._ntri_plain(case32, table))
-    lms = device_ms(lambda: torch.index_select(table, 0, case32.reshape(-1)))
-    b, by = bound_ms(8 * n)
-    print("  B3 ntri: %d cells kernel_ms %.4f plain_ms %.4f library_ms %.4f "
-          "bound_ms %.4f (%s) max_abs_err %g" % (n, ms, pms, lms, b, by, err))
-    kernels["ntri"] = dict(
-        name="ntri", route="cuda", source="sdf_torch/csrc/ntri.cu",
-        replaces="sdf_tpu/core/mc.py:155", max_abs_err=err, ms=ms,
-        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
-    )
+    e32 = torch.as_tensor(rng.integers(0, 576, n).astype(np.int32),
+                          device=dev).reshape(case32.shape)
+    check(torch.equal(mc33.ext_from_bits(case32, e32),
+                      mc33._ext_from_bits_plain(case32, e32)),
+          "B2 ext_from_bits: main-path case grid equal to plain")
+    ms = device_ms(lambda: mc33.ext_from_bits(case32, e32))
+    pms = device_ms(lambda: mc33._ext_from_bits_plain(case32, e32), reps=5,
+                    warm=1)
+    b, by = bound_ms(12 * n)
+    print("  B2 ext_from_bits (table only): %d cells kernel_ms %.4f plain_ms "
+          "%.4f bound_ms %.4f (%s)" % (n, ms, pms, b, by))
+    del cdom, edom, e32
+
+    # B2, the fused kernel, in both dtypes: the main-path volume with kernel
+    # B1's case grid, a random-normal volume (cases derived), the degenerate
+    # and tie cells as a batch.  The float32 numbers go into the kernels line.
+    for dt, vol, cas in ((torch.float32, vol32, case32),
+                         (torch.float64, vol64, case64)):
+        name = str(dt).split(".")[1]
+        ek = mc33.classify_ext(vol, base_case=cas)
+        ep = mc33._classify_ext_plain(vol, base_case=cas)
+        check(torch.equal(ek, ep),
+              "B2 classify_ext %s: main-path volume bit-equal to plain" % name)
+        err = max_abs_diff([(ek, ep)])
+        rnd = torch.as_tensor(
+            np.random.default_rng(11).standard_normal(tuple(vol.shape)),
+            dtype=dt, device=dev)
+        for level in (0.0, 0.125):
+            gk, gp = (mc33.classify_ext(rnd, level),
+                      mc33._classify_ext_plain(rnd, level))
+            check(torch.equal(gk, gp), "B2 classify_ext %s: random-normal "
+                  "volume at level %g bit-equal to plain" % (name, level))
+            err = max(err, max_abs_diff([(gk, gp)]))
+        del rnd, gk, gp
+        sv = special_volumes(dt, dev)
+        gk, gp = mc33.classify_ext(sv), mc33._classify_ext_plain(sv)
+        check(torch.equal(gk, gp) and torch.equal(
+            gk.cpu(), mc33.classify_ext(sv.cpu())),
+            "B2 classify_ext %s: %d degenerate and tie cells bit-equal to "
+            "plain, on the card and on the CPU" % (name, len(SPECIAL_CELLS)))
+        ms = device_ms(lambda: mc33.classify_ext(vol, base_case=cas))
+        pms = device_ms(lambda: mc33._classify_ext_plain(vol, base_case=cas),
+                        reps=3, warm=1)
+        ncell = cas.numel()
+        nbytes = vol.numel() * vol.element_size() + 8 * ncell
+        b, by = bound_ms(nbytes, CLASSIFY_EXT_OPS_PER_CELL * ncell, name)
+        print("  B2 classify_ext %s: %d cells kernel_ms %.4f plain_ms %.4f "
+              "bound_ms %.4f (%s; %d ops/cell) max_abs_err %g"
+              % (name, ncell, ms, pms, b, by, CLASSIFY_EXT_OPS_PER_CELL, err))
+        if dt == torch.float32:
+            kernels["classify_ext"] = dict(
+                name="classify_ext", route="cuda",
+                source="sdf_torch/csrc/classify_ext.cu",
+                replaces="sdf_tpu/core/mc33.py:180", max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None,
+            )
+            ext32 = ek
+    del vol64, case64, ek, ep
+
+    # B3 with both tables: all codes + random codes (some outside the
+    # table), then the main path's grid: the 8-bit cases for the 256-entry
+    # table, kernel B2's extended codes for the 5,904-entry one.
+    for variant, grid in (("fast", case32), ("lewiner", ext32)):
+        table = mc.get_tables(variant).on(dev, "ntri")
+        nt = table.numel()
+        codes = torch.as_tensor(np.concatenate(
+            [np.arange(nt), rng.integers(0, nt, 100003), [nt, -1]]
+        ).astype(np.int32), device=dev)
+        got, want = mc.ntri_of(codes, variant), mc._ntri_plain(codes, table)
+        check(torch.equal(got, want),
+              "B3 ntri (%d entries): all codes + random codes equal to plain"
+              % nt)
+        err = max_abs_diff([(got, want)])
+        got, want = mc.ntri_of(grid, variant), mc._ntri_plain(grid, table)
+        check(torch.equal(got, want),
+              "B3 ntri (%d entries): main-path grid equal to plain" % nt)
+        err = max(err, max_abs_diff([(got, want)]))
+        n = grid.numel()
+        ms = device_ms(lambda: mc.ntri_of(grid, variant))
+        pms = device_ms(lambda: mc._ntri_plain(grid, table))
+        lms = device_ms(lambda: torch.index_select(table, 0, grid.reshape(-1)))
+        b, by = bound_ms(8 * n)
+        print("  B3 ntri (%d entries): %d cells kernel_ms %.4f plain_ms %.4f "
+              "library_ms %.4f bound_ms %.4f (%s) max_abs_err %g"
+              % (nt, n, ms, pms, lms, b, by, err))
+        if variant == "lewiner":  # the default path's table
+            kernels["ntri"] = dict(
+                name="ntri", route="cuda", source="sdf_torch/csrc/ntri.cu",
+                replaces="sdf_tpu/core/mc.py:155", max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
+            )
+    del ext32
 
     # The main path's masks: active cells (B4) and crossing edges (B5).
     cshape = tuple(case32.shape)
@@ -353,58 +506,140 @@ def main():
 
     wrappers = {
         "eval_classify": eval_classify.eval_and_classify,
+        "classify_ext": mc33.classify_ext,
         "ntri": mc.ntri_of,
         "indices_of": compact.indices_of,
         "indices_and_ranktable_of": compact.indices_and_ranktable_of,
     }
+    fast_path = [k for k in wrappers if k != "classify_ext"]
 
-    def drive(**kw):
+    def drive(f=None, **kw):
+        """One generate() with every launch count set to 0 just before and
+        read just after."""
+        f = example(sp) if f is None else f
         for w in wrappers.values():
             w.launches = 0
-        pts = sp.generate(example(sp), verbose=False, mc_variant="fast", **kw)
+        pts = sp.generate(f, verbose=False, **kw)
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
         return pts, counts
 
+    def report_warm(label, **kw):
+        """Warm end-to-end times and one profiled run of generate(**kw)."""
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sp.generate(example(sp), verbose=False, **kw)
+            warm.append(time.perf_counter() - t0)
+        print("  %s warm end-to-end s: median %.4f min %.4f (5 runs)" % (
+            label, statistics.median(warm), min(warm)))
+        wall, busy, per = timeline(lambda: sp.generate(
+            example(sp), verbose=False, **kw))
+        print("  profiled warm run: wall %.2f ms, device busy %.3f ms "
+              "(%.1f%%), idle %.1f%%" % (wall, busy, 100 * busy / wall,
+                                         100 - 100 * busy / wall))
+        print("  phases (s): %s" % json.dumps(dict(engine.LAST_STATS)))
+        for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
+            print("    device %.4f ms  %s" % (v, k[:100]))
+        # Where the host spends the call: the port's own functions by
+        # cumulative time (cProfile slows the call; read the shares).
+        prof = cProfile.Profile()
+        prof.runcall(sp.generate, example(sp), verbose=False, **kw)
+        rows = [(ct, nc, "%s:%s" % (os.path.basename(fn), name))
+                for (fn, _, name), (_, nc, _, ct, _)
+                in pstats.Stats(prof).stats.items() if "sdf_torch" in fn]
+        for ct, nc, where in sorted(rows, reverse=True)[:14]:
+            print("    host %.4f s cumulative, %d calls  %s" % (ct, nc, where))
+
     # -- phase 4 ---------------------------------------------------------------
-    print("== phase 4: generate(samples=2**22, float32) on the card",
-          flush=True)
-    pts, counts = drive(samples=2**22)
+    print("== phase 4: generate(samples=2**22, float32, mc_variant='fast') "
+          "on the card", flush=True)
+    pts, counts = drive(samples=2**22, mc_variant="fast")
     print("  launches: %s" % counts)
-    for k, c in counts.items():
-        check(c >= 1, "%s launched on the main path (%d)" % (k, c))
-        kernels[k]["launches"] = c
+    for k in fast_path:
+        check(counts[k] >= 1, "%s launched on the fast path (%d)"
+              % (k, counts[k]))
+    check(counts["classify_ext"] == 0, "classify_ext not on the fast path")
     check(len(pts) // 3 == TRIS_2P22,
           "%d triangles (want %d)" % (len(pts) // 3, TRIS_2P22))
     check(bool(np.isfinite(pts).all()) and pts.shape[1] == 3,
           "finite (3T, 3) vertices")
-    stats = dict(sp.core.engine.LAST_STATS)
+    check("mc33_conflicted_cells" not in engine.LAST_STATS,
+          "no conflicted-cell count under fast")
+    print("  phases of the first run (s): %s"
+          % json.dumps(dict(engine.LAST_STATS)))
     t0 = time.time()
     cpu = sp.generate(example(sp), samples=2**22, verbose=False,
                       mc_variant="fast", device="cpu")
     print("  device='cpu' run: %.1f s" % (time.time() - t0))
     check(np.array_equal(pts, cpu), "soup bit-equal to the device='cpu' run")
-    warm = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sp.generate(example(sp), samples=2**22, verbose=False,
-                    mc_variant="fast")
-        warm.append(time.perf_counter() - t0)
-    print("  warm end-to-end s: median %.4f min %.4f (5 runs)" % (
-        statistics.median(warm), min(warm)))
-    print("  phases of the first run (s): %s" % json.dumps(stats))
-    wall, busy, per = timeline(lambda: sp.generate(
-        example(sp), samples=2**22, verbose=False, mc_variant="fast"))
-    print("  profiled warm run: wall %.2f ms, device busy %.3f ms (%.1f%%), "
-          "idle %.1f%%" % (wall, busy, 100 * busy / wall, 100 - 100 * busy / wall))
-    print("  phases (s): %s" % json.dumps(dict(sp.core.engine.LAST_STATS)))
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
-    for k, v in top:
-        print("    device %.4f ms  %s" % (v, k[:100]))
+    fast_soup = pts
+    report_warm("fast", samples=2**22, mc_variant="fast")
 
     # -- phase 5 ---------------------------------------------------------------
-    print("== phase 5: generate(samples=2**24, float64) on the card",
-          flush=True)
+    print("== phase 5: generate(samples=2**24, float64, mc_variant='fast') "
+          "on the card", flush=True)
+    t0 = time.perf_counter()
+    pts, counts = drive(samples=2**24, dtype=torch.float64, mc_variant="fast")
+    print("  %.2f s, launches: %s" % (time.perf_counter() - t0, counts))
+    for k in fast_path:
+        check(counts[k] >= 1, "%s launched at 2^24 (%d)" % (k, counts[k]))
+    check(len(pts) // 3 == TRIS_2P24,
+          "%d triangles (want %d)" % (len(pts) // 3, TRIS_2P24))
+    h = soup_hash(pts)
+    check(h == SOUP_2P24, "soup sha256 %s" % h)
+
+    # -- phase 6 ---------------------------------------------------------------
+    print("== phase 6: generate(samples=2**22) at its defaults (lewiner, "
+          "float32) on the card", flush=True)
+    engine._BOUNDS_MEMO.clear()
+    engine._COUNTS_MEMO.clear()
+    t0 = time.perf_counter()
+    pts, counts = drive(samples=2**22)
+    first_s = time.perf_counter() - t0
+    first_stats = dict(engine.LAST_STATS)
+    print("  launches: %s" % counts)
+    for k, c in counts.items():
+        check(c >= 1, "%s launched on the default path (%d)" % (k, c))
+        kernels[k]["launches"] = c
+    check(len(pts) // 3 == TRIS_2P22,
+          "%d triangles (want %d)" % (len(pts) // 3, TRIS_2P22))
+    check(bool(np.isfinite(pts).all()) and pts.shape[1] == 3,
+          "finite (3T, 3) vertices")
+    check(first_stats.get("mc33_conflicted_cells") == 0,
+          "mc33_conflicted_cells == 0")
+    check(soup_hash(pts) == soup_hash(fast_soup),
+          "canonical soup equal to the fast variant's on this model")
+    t0 = time.perf_counter()
+    again, counts2 = drive(samples=2**22)
+    second_s = time.perf_counter() - t0
+    check(np.array_equal(again, pts) and counts2 == counts,
+          "second (memoized) call: bit-equal soup, same launches")
+    print("  first call %.4f s (memos empty), second call %.4f s (bounds and "
+          "counts memoized)" % (first_s, second_s))
+    print("  phases of the first call (s): %s" % json.dumps(first_stats))
+    print("  phases of the second call (s): %s"
+          % json.dumps(dict(engine.LAST_STATS)))
+    t0 = time.time()
+    cpu = sp.generate(example(sp), samples=2**22, verbose=False, device="cpu")
+    print("  device='cpu' run: %.1f s" % (time.time() - t0))
+    check(np.array_equal(pts, cpu), "soup bit-equal to the device='cpu' run")
+    del cpu, again, fast_soup
+    report_warm("default (memoized)", samples=2**22)
+    cold = []
+    for _ in range(5):
+        engine._BOUNDS_MEMO.clear()
+        engine._COUNTS_MEMO.clear()
+        t0 = time.perf_counter()
+        sp.generate(example(sp), samples=2**22, verbose=False)
+        cold.append(time.perf_counter() - t0)
+    print("  default with the memos emptied before each call, s: median %.4f "
+          "min %.4f (5 runs)" % (statistics.median(cold), min(cold)))
+    print("  phases (s): %s" % json.dumps(dict(engine.LAST_STATS)))
+
+    # -- phase 7 ---------------------------------------------------------------
+    print("== phase 7: generate(samples=2**24, float64) at its default "
+          "variant on the card", flush=True)
     t0 = time.perf_counter()
     pts, counts = drive(samples=2**24, dtype=torch.float64)
     print("  %.2f s, launches: %s" % (time.perf_counter() - t0, counts))
@@ -414,9 +649,62 @@ def main():
           "%d triangles (want %d)" % (len(pts) // 3, TRIS_2P24))
     h = soup_hash(pts)
     check(h == SOUP_2P24, "soup sha256 %s" % h)
+    check(engine.LAST_STATS.get("mc33_conflicted_cells") == 0,
+          "mc33_conflicted_cells == 0 at 2^24")
+    del pts
+    X, Y, Z = grid_axes(example(sp), 2**24, torch.float64)
+    vol, cas = eval_classify.eval_and_classify(example(sp), X, Y, Z,
+                                               torch.float64, dev)
+    ek = mc33.classify_ext(vol, base_case=cas)
+    ep = mc33._classify_ext_plain(vol, base_case=cas)
+    check(torch.equal(ek, ep), "B2 ext grid %s at 2^24 float64 bit-equal to "
+          "plain on the same volume" % (tuple(ek.shape),))
+    eh = hashlib.sha256(ek.cpu().numpy().tobytes()).hexdigest()
+    print("  ext grid sha256 %s\n  pinned          %s (%s)" % (
+        eh, EXT_GRID_2P24, "equal" if eh == EXT_GRID_2P24 else
+        "DIFFERENT: the pin was taken on a jitted XLA volume, whose FMA "
+        "contraction moves samples by an ulp"))
+    del vol, cas, ek, ep
+
+    # -- phase 8 ---------------------------------------------------------------
+    print("== phase 8: the saddle model at samples=2**22, float32, both "
+          "variants", flush=True)
+    sad = zoo.saddle()
+    X, Y, Z = grid_axes(sad, 2**22, torch.float32)
+    vk, ck = eval_classify.eval_and_classify(sad, X, Y, Z, torch.float32, dev)
+    vp, cp = eval_classify._eval_classify_plain(sad, X, Y, Z, torch.float32,
+                                                dev)
+    check(torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+          and torch.equal(ck, cp),
+          "B1 eval_classify on the saddle model (sin, cos): vol and case "
+          "bit-equal to plain")
+    check(torch.equal(mc33.classify_ext(vk, base_case=ck),
+                      mc33._classify_ext_plain(vk, base_case=ck)),
+          "B2 classify_ext on the saddle volume bit-equal to plain")
+    del vk, ck, vp, cp
+    soups = {}
+    for variant in ("lewiner", "fast"):
+        t0 = time.perf_counter()
+        pts, counts = drive(zoo.saddle(), samples=2**22, mc_variant=variant)
+        soups[variant] = (len(pts) // 3, soup_hash(pts))
+        print("  %s: %d triangles in %.2f s, soup %s, launches %s, "
+              "conflicted %s" % (variant, soups[variant][0],
+                                 time.perf_counter() - t0, soups[variant][1],
+                                 counts,
+                                 engine.LAST_STATS.get("mc33_conflicted_cells")))
+        check(bool(np.isfinite(pts).all()), "finite vertices (%s)" % variant)
+        del pts
+    print("  (the JAX package on its TPU counted 1,899,716 lewiner / "
+          "1,899,008 fast; sin and cos differ between the machines, so the "
+          "counts are not pinned to those)")
+    check(soups["lewiner"][0] != soups["fast"][0],
+          "the variants' triangle counts differ (%d vs %d)"
+          % (soups["lewiner"][0], soups["fast"][0]))
+    check(soups["lewiner"][1] != soups["fast"][1], "the variants' soups differ")
 
     # -- result ------------------------------------------------------------------
-    order = ["eval_classify", "ntri", "indices_of", "indices_and_ranktable_of"]
+    order = ["eval_classify", "classify_ext", "ntri", "indices_of",
+             "indices_and_ranktable_of"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys}

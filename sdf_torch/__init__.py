@@ -6,8 +6,10 @@ Hopper (``sdf_torch/csrc``).  Entry points run on the card by default
 (``device=None`` means ``"cuda"`` and raises without one); pass
 ``device="cpu"`` to run the kernels' plain PyTorch versions.
 
-This slice ports the single-device dense ``generate()`` with
-``mc_variant="fast"``; see ROADMAP.md for what is still to come.
+Ported so far: the single-device dense ``generate()`` with both
+marching-cubes variants ("lewiner", the default, and "fast"), its memos and
+``checkpoint=``, STL/OBJ/PLY output and the model zoo; see ROADMAP.md for
+what is still to come (the tiled sparse path, 2D ops, multi-GPU).
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it
@@ -73,6 +75,7 @@ from .core.node import sdf2, sdf3, op2, op3, op23, op32
 from .ops import csg as dn
 from .io import stl
 from .utils import progress, util
+from . import models
 
 from .core.engine import generate, generate_mesh, save
 

@@ -7,11 +7,18 @@ the single-device dense ``generate()``.
   * probe cull: the per-batch ``_skip`` test, evaluated with torch ops on
     the device and fetched together with the counts (speculation);
   * eval + classify: kernel B1 (``core.eval_classify``);
+  * under ``mc_variant="lewiner"`` (the default) the 8-bit cases go through
+    kernel B2 (``mc33.classify_ext``) and come back as extended codes;
   * count: ``mc.count_indexed`` (kernel B3), then ONE host sync for every
     count plus the cull mask;
   * emit: ``mc.gather_emit_indexed`` (kernels B4, B3, B5) into buffers
     sized by ``mc.round_capacity``, packed when float32;
   * decode: ``mc.unpack_indexed`` on the host.
+
+Bounds and counts are deterministic in the expression, so both are
+memoized on ``utils.checkpoint.fingerprint``: a repeat call on an
+unchanged model probes nothing, dispatches emit without waiting for the
+counts, and fetches the mesh and the pending statistics in one transfer.
 
 Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
 that raises.  ``device="cpu"`` runs the kernels' plain versions.
@@ -25,9 +32,10 @@ import warnings
 import numpy as np
 import torch
 
-from ..io import stl
+from ..io import meshfmt, stl
+from ..utils import checkpoint as ckpt
 from ..utils import progress
-from . import eval_classify, mc
+from . import eval_classify, mc, mc33
 from .node import Points, cast, resolve_device, upload
 
 WORKERS = None
@@ -37,6 +45,16 @@ BATCH_SIZE = 32
 # Culled-batch fraction at which the JAX package routes sparse=True to its
 # tiled path (not ported yet: ROADMAP A11).
 AUTO_TILES_THRESHOLD = 0.6
+
+# Memos of deterministic results, keyed on checkpoint.fingerprint (structure,
+# parameter leaves and closure statics): refined bounds per (expression,
+# dtype), and the pre-emit counts (cells, triangles, edges, conflicted
+# cells) per (expression, grid, dtype, cull mode, variant, device type).
+# ``.k()`` tags and parameter edits change the fingerprint and miss.
+_BOUNDS_MEMO = {}
+_COUNTS_MEMO = {}
+_MEMO_MAX = 256
+_EMPTY = np.empty(0)
 
 # Structured report of the most recent generate(): phase wall times in
 # seconds plus batch/triangle counters (the JAX package's keys).
@@ -132,13 +150,61 @@ def _estimate_bounds_host(sdf, dtype):
     return lo, hi, empty
 
 
+def _fingerprint_or_none(sdf, X, Y, Z, extras):
+    """The memo key, or None for an expression that cannot be hashed (an
+    exotic closure): such a call just recomputes."""
+    try:
+        return ckpt.fingerprint(sdf, X, Y, Z, extras)
+    except Exception:
+        return None
+
+
+def _memo_put(memo, key, value):
+    if key is None:
+        return
+    if len(memo) > _MEMO_MAX:
+        memo.clear()
+    memo[key] = value
+
+
 def _estimate_bounds(sdf, dtype=torch.float32):
+    """Probe-grid bounds estimation (see ``_estimate_bounds_host``),
+    memoized: the refinement is deterministic in the expression, so repeat
+    ``generate()`` calls on an unchanged model reuse the result instead of
+    evaluating up to 32 probe grids every time."""
+    fp = _fingerprint_or_none(sdf, _EMPTY, _EMPTY, _EMPTY, "bounds")
+    key = None if fp is None else (fp, str(dtype))
+    if key is not None and key in _BOUNDS_MEMO:
+        return _BOUNDS_MEMO[key]
     lo, hi, empty = _estimate_bounds_host(sdf, dtype)
     if empty:
         raise ValueError(
             "bounds estimation failed (no surface found); pass bounds= explicitly"
         )
-    return tuple(lo.tolist()), tuple(hi.tolist())
+    out = (tuple(lo.tolist()), tuple(hi.tolist()))
+    _memo_put(_BOUNDS_MEMO, key, out)
+    return out
+
+
+def _fetch(tensors):
+    """Tensors of any dtypes on one device -> numpy arrays of the same
+    shapes, in ONE device-to-host transfer (each ``.cpu()`` waits for the
+    card once): the tensors travel as bytes, each padded to 8."""
+    parts, metas = [], []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = (-b.numel()) % 8
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        parts.append(b)
+        metas.append((b.numel(), t.numel() * t.element_size(), t))
+    flat = torch.cat(parts).cpu().numpy()
+    out, at = [], 0
+    for padded, nbytes, t in metas:
+        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at: at + nbytes].view(dt).reshape(tuple(t.shape)))
+        at += padded
+    return out
 
 
 def _tile_slices(n, size):
@@ -274,19 +340,27 @@ def generate(
     faces (T, 3) int32)``.  ``device=None`` runs on the card (``"cuda"``)
     and raises without one; ``device="cpu"`` runs the plain versions.
 
-    Not ported yet, and raising ``NotImplementedError``:
-    ``mc_variant="lewiner"`` -- the default -- (ROADMAP A5/B2); a cull that
-    routes to the tiled path, or ``sparse="tiles"`` (A11); ``mesh=`` (A14);
-    ``checkpoint=`` (A8).  Pass ``mc_variant="fast"``.
+    ``mc_variant=`` selects the marching-cubes topology rule: "lewiner"
+    (the default) resolves every ambiguity from the cell's trilinear
+    interpolant (face-saddle + interior tests, kernel B2), "fast" uses the
+    fixed separated-ambiguity tables and skips that classification
+    ("default" is a legacy alias of "fast").  ``checkpoint=`` names a file
+    that persists the soup keyed on a fingerprint of the run configuration;
+    a matching re-run resumes from it (see ``utils.checkpoint``).
+
+    Not ported yet, and raising ``NotImplementedError``: a cull that routes
+    to the tiled path, or ``sparse="tiles"`` (ROADMAP A11); ``mesh=`` (A14).
     """
     start = time.time()
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     stats = {}
     mc_variant = _MC_VARIANT_ALIASES.get(mc_variant, mc_variant)
-    mc.get_tables(mc_variant)  # validate the name (lewiner raises)
+    mc.get_tables(mc_variant)  # validate the name / load tables eagerly
     if output not in ("points", "mesh"):
         raise ValueError("output must be 'points' or 'mesh', got %r" % output)
+    if output == "mesh" and checkpoint is not None:
+        raise ValueError("output='mesh' does not support checkpoint=")
     if sparse == "tiles":
         raise NotImplementedError(
             "sparse='tiles' is not ported yet (ROADMAP A11)"
@@ -295,10 +369,6 @@ def generate(
         raise ValueError("sparse must be True, False or 'tiles'")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP A14)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint= is not ported yet (ROADMAP A8)"
-        )
     want_indexed = output == "mesh" and not debug
 
     if workers is not None:
@@ -356,6 +426,23 @@ def generate(
             )
         return np.zeros((0, 3), dtype=np.float64)
 
+    variant_tag = (mc_variant,) if mc_variant != "default" else ()
+    fp = None
+    if checkpoint is not None:
+        # batch_size changes the cull granularity (a different triangle set
+        # for inexact SDFs) and debug= changes the returned points: both
+        # must invalidate a cached mesh.
+        fp = ckpt.fingerprint(
+            sdf, X, Y, Z, (sparse, str(dtype), s, bool(debug)) + variant_tag
+        )
+        cached = ckpt.load(checkpoint, fp)
+        if cached is not None:
+            bar.done()
+            if verbose:
+                print("resumed %d triangles from %s"
+                      % (len(cached) // 3, checkpoint))
+            return cached
+
     # sparse=True runs speculatively: the cull test is dispatched but not
     # fetched, the dense pipeline is dispatched behind it with the
     # device-resident mask, and the mask comes back with the counts in one
@@ -373,6 +460,11 @@ def generate(
     with _phase("eval_classify", stats):
         vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
                                                     device)
+    if mc_variant != "default":
+        # Extend kernel B1's 8-bit codes with the variant's saddle/interior
+        # bits (reusing them instead of re-deriving corner signs).
+        with _phase("classify_ext", stats):
+            case = mc33.classify_ext(vol, base_case=case)
     bar.update(num_batches * 0.6)
 
     cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
@@ -382,28 +474,49 @@ def generate(
         ncells_dev, total, n_edges, per_tile_dev, active, emask = (
             mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
         )
+    confl = None
+    pending = [per_tile_dev, skip3d]  # statistics not fetched yet
+    counts = [ncells_dev, total, n_edges]
+    if mc_variant == "lewiner":
+        # Observability for majority-voted table entries; rides the counts
+        # transfer below.
+        counts.append(mc33.count_conflicted(case, keep))
 
-    # The one host sync before emit: every count, the per-tile counters and
-    # the cull mask in a single transfer.
-    got = torch.cat(
-        [ncells_dev.reshape(1).to(torch.int64),
-         total.reshape(1).to(torch.int64),
-         n_edges.reshape(1).to(torch.int64),
-         per_tile_dev.reshape(-1).to(torch.int64),
-         skip3d.reshape(-1).to(torch.int64)]
-    ).cpu().numpy()
-    n_cells, n, ne = (int(v) for v in got[:3])
-    npt = int(np.prod(tshape))
-    per_tile = got[3: 3 + npt].reshape(tshape)
-    skip = got[3 + npt:].astype(bool).reshape(sshape)
+    # Counts are deterministic in (expression, grid, dtype, cull mode,
+    # variant, and the device type: sin and cos differ between the CPU and
+    # the card): a repeat generate() of an unchanged model reuses them,
+    # dispatches emit at once and lets the statistics ride the mesh
+    # transfer.  A non-speculative run reaches here only with the all-False
+    # mask of sparse=False, so the flag stands for the mask.
+    ckey = _fingerprint_or_none(
+        sdf, X, Y, Z,
+        ("counts", str(dtype), s, bool(speculate), device.type) + variant_tag,
+    )
+    memo = _COUNTS_MEMO.get(ckey) if ckey is not None else None
+    if memo is not None:
+        n_cells, n, ne, confl = memo
+        if n_cells == 0:
+            per_tile, skip = _fetch(pending)
+            pending = []
+    else:
+        # The one host sync before emit: every count, the per-tile counters
+        # and the cull mask in a single transfer.
+        got = _fetch(counts + pending)
+        pending = []
+        n_cells, n, ne = (int(v) for v in got[:3])
+        if mc_variant == "lewiner":
+            confl = int(got[3])
+        per_tile, skip = got[-2], got[-1]
     bar.update(num_batches * 0.8)
 
-    if speculate and skip.mean() >= AUTO_TILES_THRESHOLD:
+    if not pending and speculate and skip.mean() >= AUTO_TILES_THRESHOLD:
         raise NotImplementedError(
             "the probe cull removed %.0f%% of the batches, which routes to "
             "the tiled sparse path (not ported yet: ROADMAP A11); pass "
             "sparse=False to mesh densely" % (100 * skip.mean())
         )
+    if memo is None:  # a routed run is never memoized
+        _memo_put(_COUNTS_MEMO, ckey, (n_cells, n, ne, confl))
 
     if n_cells == 0:
         indexed = (
@@ -424,16 +537,13 @@ def generate(
                 cell_capacity, packed=packed, variant=mc_variant,
             )
         with _phase("d2h", stats):
-            if packed is not False:
-                # Both are int32 bit patterns: one transfer.
-                ev = everts[:, :ne]
-                both = torch.cat([ev.reshape(-1), faces[:, :n].reshape(-1)])
-                both = both.cpu().numpy().view(np.uint32)
-                eh = both[: ev.numel()].reshape(2, ne)
-                fh = both[ev.numel():].reshape(-1, n)
-            else:
-                eh = everts[:, :ne].cpu().numpy()
-                fh = faces[:, :n].cpu().numpy()
+            # One transfer: the mesh and, on a memoized run, the statistics.
+            got = _fetch([everts[:, :ne], faces[:, :n]] + pending)
+            eh, fh = got[:2]
+            if pending:
+                per_tile, skip = got[2:]
+            if packed is not False:  # int32 bit patterns of uint32 words
+                eh, fh = eh.view(np.uint32), fh.view(np.uint32)
         with _phase("decode", stats):
             if packed is not False:
                 indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
@@ -446,6 +556,9 @@ def generate(
     mfaces = indexed[1]
     points = None if want_indexed else mverts[mfaces.reshape(-1)]
     bar.done()
+
+    if checkpoint is not None:
+        ckpt.save(checkpoint, fp, points)
 
     # per_tile is sized on cell tiles, which can be one short of the
     # sample-tile grid when an axis has a degenerate 1-sample last tile.
@@ -472,15 +585,22 @@ def generate(
         triangles=triangles,
         total=round(seconds, 4),
     )
+    if confl is not None:
+        stats["mc33_conflicted_cells"] = confl
     LAST_STATS.clear()
     LAST_STATS.update(stats)
     if verbose:
         print("%d skipped, %d empty, %d nonempty" % (skipped, empty, nonempty))
+        if confl:
+            print(
+                "%d cells hit majority-voted MC33 table entries "
+                "(docs/TOPOLOGY.md section 4.2)" % confl
+            )
         print("%d triangles in %g seconds" % (triangles, seconds))
 
     if output == "mesh":
         if points is not None:  # debug boxes are soup-only: dedup on host
-            return stl.dedup(points)
+            return meshfmt.dedup(points)
         return mverts, mfaces
     return points
 
@@ -492,11 +612,11 @@ def generate_mesh(sdf, *args, **kwargs):
 
 
 def save(path, sdf, *args, **kwargs):
-    """Generate and write a binary STL (other formats: ROADMAP A8)."""
-    if not path.lower().endswith(".stl"):
-        raise NotImplementedError(
-            "only .stl output is ported yet (other formats: ROADMAP A8)"
-        )
+    """Generate and write the mesh: a binary STL, or by extension the
+    indexed formats of ``io.meshfmt`` (OBJ, PLY)."""
     points = generate(sdf, *args, **kwargs)
-    stl.write_binary_stl(path, points)
+    if path.lower().endswith(".stl"):
+        stl.write_binary_stl(path, points)
+    else:
+        meshfmt.write_mesh(path, points)
     return points

@@ -11,9 +11,11 @@ Two phases with one host sync between them, as in the JAX package:
     ids to compacted vertex ranks.
 
 Vertices are fractional index coordinates; the engine maps them to world
-space.  Only the fixed separated-ambiguity tables ("fast", internal name
-"default") are ported in this slice; the lewiner tables come with their
-classifier.
+space.  Two table bundles: "lewiner" (generate()'s default: 5,904 extended
+codes from ``mc33.classify_ext``, up to 10 triangles a cell) and the fixed
+separated-ambiguity tables ("fast", internal name "default": 256 codes, up
+to 5 triangles).  Both run through the same code; only the table sizes and
+the case-code width differ.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ def round_capacity(n):
 
 
 class Tables:
-    """Per-variant case-table bundle (the fixed "default" tables only)."""
+    """Per-variant case-table bundle: ``"default"`` is the fixed
+    separated-ambiguity rule (mc_tables), ``"lewiner"`` the trilinear-
+    faithful extended tables (mc33), whose case codes carry face-saddle and
+    interior bits -- same code paths, wider tables."""
 
     def __init__(self, name, tri_table, ntri_table):
         self.name = name
@@ -57,6 +62,14 @@ class Tables:
         ).reshape(-1).astype(np.int32)
         self._dev = {}
 
+    def classify(self, volume, level=0.0):
+        """Per-cell case codes for this variant."""
+        if self.name == "default":
+            return _cell_cases(volume, level)
+        from . import mc33
+
+        return mc33.classify_ext(volume, level)
+
     def on(self, device, name):
         """A table as a tensor on ``device`` (cached)."""
         key = (str(device), name)
@@ -73,21 +86,23 @@ _TABLES = {}
 
 
 def get_tables(variant="default"):
-    """The cached table bundle for an MC variant name ("fast" is the
-    user-facing spelling of "default")."""
+    """The cached table bundle for an MC variant name: "lewiner" is
+    generate()'s default, "fast" the user-facing spelling of "default"."""
     if variant == "fast":
         variant = "default"
-    if variant == "lewiner":
-        raise NotImplementedError(
-            "mc_variant='lewiner' is not ported yet (ROADMAP A5/B2); "
-            "pass mc_variant='fast'"
-        )
-    if variant != "default":
-        raise ValueError(
-            f"unknown mc_variant {variant!r}: use 'lewiner' or 'fast'"
-        )
     if variant not in _TABLES:
-        _TABLES[variant] = Tables("default", TRI_TABLE, NTRI_TABLE)
+        if variant == "default":
+            _TABLES[variant] = Tables("default", TRI_TABLE, NTRI_TABLE)
+        elif variant == "lewiner":
+            from . import mc33
+
+            d = mc33.load_tables()
+            _TABLES[variant] = Tables("lewiner", d["tri_table"], d["ntri"])
+        else:
+            raise ValueError(
+                f"unknown mc_variant {variant!r}: use 'lewiner' (the "
+                "default) or 'fast' ('default' is a legacy alias of 'fast')"
+            )
     return _TABLES[variant]
 
 
@@ -243,7 +258,8 @@ def count_indexed(volume, case, keep, tile, tshape, variant="default"):
     device tensors to fetch in ONE transfer, the last two stay for
     ``gather_emit_indexed``."""
     ntri_all = ntri_of(case, variant)
-    # Every crossing case of the default tables emits >= 1 triangle.
+    # Which codes emit nothing is per table: the 8-bit cases 0 and 255 of the
+    # default tables, and every extended code under them in the lewiner set.
     active = keep & (ntri_all > 0)
     ntri = ntri_all * active.to(torch.int32)
     cx, cy, cz = ntri.shape

@@ -20,14 +20,6 @@ _RECORD = np.dtype(
 )
 
 
-def dedup(points):
-    """Flat triangle soup (3T, 3) -> indexed mesh (V, 3) float64, (T, 3)
-    int32."""
-    points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
-    verts, inverse = np.unique(points, axis=0, return_inverse=True)
-    return verts, inverse.reshape(-1, 3).astype(np.int32)
-
-
 def write_binary_stl(path, points):
     n = len(points) // 3
 
@@ -58,4 +50,6 @@ def read_binary_stl(path):
             )
         raise ValueError("truncated binary STL %r" % path)
     a = np.frombuffer(data[84: 84 + n * _RECORD.itemsize], dtype=_RECORD)
-    return dedup(a["points"].reshape(-1, 3).astype(np.float64))
+    from . import meshfmt
+
+    return meshfmt.dedup(a["points"].reshape(-1, 3).astype(np.float64))

@@ -14,7 +14,13 @@ KERNEL_MODULES = [
     "sdf_torch._build",
     "sdf_torch.core.eval_classify",
     "sdf_torch.core.mc",
+    "sdf_torch.core.mc33",
+    "sdf_torch.core.mc33_build",
     "sdf_torch.core.compact",
+    "sdf_torch.core.engine",
+    "sdf_torch.utils.checkpoint",
+    "sdf_torch.io.meshfmt",
+    "sdf_torch.models.zoo",
 ]
 
 
@@ -23,6 +29,10 @@ def test_import_leaves_jax_out():
         "import sys, sdf_torch\n"
         "from sdf_torch import *\n"
         "import sdf_torch.core.engine, sdf_torch.core.eval_classify\n"
+        "import sdf_torch.core.mc33, sdf_torch.core.mc33_build\n"
+        "import sdf_torch.utils.checkpoint, sdf_torch.io.meshfmt\n"
+        "import sdf_torch.models.zoo\n"
+        "sdf_torch.core.mc.get_tables('lewiner')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'sdf_tpu'))]\n"
         "print(bad)\n"
@@ -33,18 +43,45 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "sdf_torch")):
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    return paths
+
+
 def test_sources_name_no_jax():
-    """No module of the port imports jax or sdf_tpu, even lazily."""
-    pkg = os.path.join(ROOT, "sdf_torch")
-    for dirpath, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as fp:
-                    for line in fp:
-                        s = line.strip()
-                        if s.startswith(("import ", "from ")):
-                            assert "jax" not in s and "sdf_tpu" not in s, (
-                                name, s)
+    """No module of the port, nor chip_smoke.py, imports jax or sdf_tpu,
+    even lazily."""
+    paths = _port_sources()
+    names = {os.path.relpath(p, ROOT) for p in paths}
+    assert {"chip_smoke.py", "sdf_torch/core/mc33.py",
+            "sdf_torch/core/mc33_build.py", "sdf_torch/utils/checkpoint.py",
+            "sdf_torch/io/meshfmt.py", "sdf_torch/models/zoo.py"} <= names
+    for path in paths:
+        with open(path) as fp:
+            for line in fp:
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    assert "jax" not in s and "sdf_tpu" not in s, (path, s)
+
+
+def test_kernel_sources_are_shipped_and_named():
+    """Every kernel source the wrappers build exists under csrc/ and says
+    which TPU kernel it replaces."""
+    csrc = os.path.join(ROOT, "sdf_torch", "csrc")
+    for name in ("eval_classify.cu", "ntri.cu", "compact.cu",
+                 "classify_ext.cu"):
+        with open(os.path.join(csrc, name)) as fp:
+            text = fp.read()
+        assert "Replaces: sdf_tpu/" in text, name
+        assert "extern \"C\"" in text, name
+    with open(os.path.join(csrc, "classify_ext.cu")) as fp:
+        text = fp.read()
+    for entry in ("sdf_classify_ext_f32", "sdf_classify_ext_f64",
+                  "sdf_ext_from_bits"):
+        assert entry in text
+    assert "fast_math" not in text and "__fmaf" not in text
 
 
 @pytest.mark.parametrize("module", KERNEL_MODULES)
@@ -65,6 +102,8 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
                               device=None)
     with pytest.raises(RuntimeError, match="CUDA"):
         sp.sphere(1).generate(samples=2**10, verbose=False, mc_variant="fast")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sp.sphere(1).generate(samples=2**10, verbose=False)  # every default
 
 
 def test_point_call_defaults_to_card(monkeypatch):
@@ -87,11 +126,23 @@ def test_point_call_defaults_to_card(monkeypatch):
 def test_wrappers_never_fall_back():
     """A tensor on a device that is neither the CPU nor CUDA is refused, not
     computed by the plain version."""
-    from sdf_torch.core import compact, eval_classify, mc
+    from sdf_torch.core import compact, eval_classify, mc, mc33
 
     meta_case = torch.zeros(16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         mc.ntri_of(meta_case)
+    with pytest.raises(ValueError):
+        mc.ntri_of(meta_case, "lewiner")
+    with pytest.raises(ValueError):
+        mc33.ext_from_bits(meta_case, meta_case)
+    for dtype in (torch.float32, torch.float64):
+        vol = torch.zeros((4, 4, 4), dtype=dtype, device="meta")
+        with pytest.raises(ValueError):
+            mc33.classify_ext(vol)
+        with pytest.raises(ValueError):
+            mc33.classify_ext(
+                vol, base_case=torch.zeros((3, 3, 3), dtype=torch.int32,
+                                           device="meta"))
     with pytest.raises(ValueError):
         compact.indices_and_ranktable_of(
             torch.zeros(16, dtype=torch.bool, device="meta"), 4
@@ -108,11 +159,17 @@ def test_launch_counters_start_at_zero_on_cpu():
     import sdf_torch as sp
     from sdf_torch.core import compact, eval_classify, mc
 
+    from sdf_torch.core import mc33
+
     wrappers = [eval_classify.eval_and_classify, mc.ntri_of,
-                compact.indices_of, compact.indices_and_ranktable_of]
+                compact.indices_of, compact.indices_and_ranktable_of,
+                mc33.classify_ext, mc33.ext_from_bits]
     before = [w.launches for w in wrappers]
-    sp.sphere(1).generate(samples=2**12, verbose=False, mc_variant="fast",
-                          device="cpu")
+    for variant in ("fast", "lewiner"):
+        sp.sphere(1).generate(samples=2**12, verbose=False,
+                              mc_variant=variant, device="cpu")
+    z = torch.zeros(8, dtype=torch.int32)
+    mc33.ext_from_bits(z, z)
     assert [w.launches for w in wrappers] == before
 
 

@@ -19,6 +19,27 @@ def example(m):
     return f
 
 
+def saddle_pair(omega=40.0, t=0.2, r=1.45):
+    """The saddle (gyroid) model in both packages with the same parameters:
+    ``(sdf_tpu expression, sdf_torch expression)``.  In sdf_tpu ``omega``
+    and ``t`` are statics of a closure and only the clipping sphere has
+    leaves; in sdf_torch all are leaves.  The port's model is built at its
+    defaults and receives the values through ``load_leaves``: the two
+    closure statics first, then the JAX tree's leaves (the sphere's centre
+    and radius)."""
+    import jax
+
+    from sdf_tpu.models import zoo as jzoo
+    from sdf_torch.core.node import load_leaves
+    from sdf_torch.models import zoo as tzoo
+
+    fj = jzoo.saddle(omega, t, r)
+    leaves = [np.asarray(omega), np.asarray(t)] + [
+        np.asarray(x) for x in jax.tree_util.tree_leaves(fj)
+    ]
+    return fj, load_leaves(tzoo.saddle(), leaves)
+
+
 def op_cases():
     """Every ported primitive and op: name -> (builder taking the package
     sdf_tpu or sdf_torch, tolerance class of tests/test_torch_ops.py)."""
