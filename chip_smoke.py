@@ -29,10 +29,33 @@ Phases, each printing its own lines:
      tests/test_topology_2p24.py;
   8. the saddle (gyroid) model at 2**22 in float32 under both variants:
      triangle counts and soups differ, and kernel B1 is bit-equal to its
-     plain version on this model (sin and cos on the card).
+     plain version on this model (sin and cos on the card);
+  9. the tiled sparse path at full width: generate(zoo.blobby(),
+     samples=2**26) at its defaults.  The cull removes over 0.6 of the
+     batches, so the speculative dense result is discarded and the kept
+     tiles go through kernels B6, B2, B3, B4 and B5.  The canonical soup
+     equals that of the dense pipeline under the same cull mask, triangles
+     come in (tile, cell) order, and the warm time, phases and idle share
+     are printed;
+ 10. generate(sparse="tiles") of the example model at 2**22 under both
+     variants: 291,028 triangles and the dense run's canonical soup,
+     output="mesh" gathering to the soup, and blobby at 2**22 bit-equal to
+     the device="cpu" run;
+ 11. a gather-bearing expression (a table lookup defined here) under
+     generate(sparse="tiles"): kernel B7 launched, soup bit-equal to the
+     device="cpu" run; and at the defaults, where it goes to the tiles too.
+Phase 3 also holds kernels B6 and B7 against their plain versions on the
+tile lists of phases 9 to 11, and kernels B1 to B5 at the shapes phase 9
+gives them: B1, B2, B3 on blobby's whole 2**26 grid (the speculative dense
+pass), B2 to B5 on the 512 tile volumes, the tile-cell mask and the
+per-tile edge mask.
 Then one JSON line with every kernel, the card line again, and last the
 result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
+
+``python3 chip_smoke.py --ptxas`` instead compiles the per-tile kernels of
+four zoo models with ``-Xptxas -v`` and prints each kernel's registers and
+spills (no card needed, only nvcc).
 """
 
 import cProfile
@@ -44,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 SOUP_2P24 = "54d4ad9c22a8ce6bb77d8b763e2abb6878eda56ece4a40ea8aa274802b698ca3"
 EXT_GRID_2P24 = "3fb04083920066edbaef61d2d80986b926941df188874e34fdda3b447eb73fcc"
@@ -107,6 +131,43 @@ def example(m):
     c = m.cylinder(0.5)
     f -= c.orient(m.X) | c.orient(m.Y) | c.orient(m.Z)
     return f
+
+
+def table_field(table, lo=-1.5, hi=1.5):
+    """A gather-marked SDF: the heightfield ``z - table[i(x)]``, the table
+    looked up by an index computed from ``x``.  The generated kernel body
+    cannot hold the lookup, so its field is computed ahead of kernel B7."""
+    import torch
+
+    from sdf_torch.core import hybrid
+    from sdf_torch.core.node import SDF3, as_param
+
+    n = len(table)
+
+    @hybrid.mark_gather
+    def table_field_fn(q, p):
+        x, z = p[0], p[2]
+        i = torch.clamp(torch.round((x - lo) * ((n - 1) / (hi - lo))), 0, n - 1)
+        return z - q["table"][i.to(torch.int64)]
+
+    return SDF3(table_field_fn, {"table": as_param(table)})
+
+
+def gather_models(m):
+    """The table field under a rotation (recorded at rotated points) and
+    under circular_array, whose parent evaluates the child twice (two
+    fields, two reads)."""
+    import numpy as np
+
+    table = 0.25 * np.cos(np.linspace(0.0, 9.0, 25))
+    return {
+        "rotated": m.sphere(1.2) & table_field(table).rotate(0.5, m.X),
+        "circular": m.sphere(1.2) & table_field(table).translate(
+            (0.3, 0.0, 0.0)).circular_array(3, 0.0),
+    }
+
+
+GATHER_BOUNDS = ((-1.3, -1.3, -1.3), (1.3, 1.3, 1.3))
 
 
 def soup_hash(pts):
@@ -245,20 +306,102 @@ def special_volumes(dtype, device):
     return torch.as_tensor(vols, dtype=dtype, device=device)
 
 
-def grid_axes(f, samples, dtype):
+def grid_axes(f, samples, dtype, bounds=None):
     """The grid generate() builds (bounds, then np.arange per axis)."""
     import numpy as np
 
     from sdf_torch.core import engine
 
-    (x0, y0, z0), (x1, y1, z1) = engine._estimate_bounds(f, dtype)
+    (x0, y0, z0), (x1, y1, z1) = bounds or engine._estimate_bounds(f, dtype)
     step = ((x1 - x0) * (y1 - y0) * (z1 - z0) / samples) ** (1 / 3)
     return [np.arange(a, b, step) for a, b in ((x0, x1), (y0, y1), (z0, z1))]
+
+
+def kept_tiles(f, axes, tile, dtype, device, pad=True):
+    """The tile list the tiled path builds: the tiles the host probe cull
+    keeps, x-major, padded with tile 0 to round_capacity; returns ``(tiles
+    (ntc, 3) int32 tensor, live count)``."""
+    import numpy as np
+    import torch
+
+    from sdf_torch.core import engine, mc
+
+    active = np.argwhere(~engine._skip_mask(f, *axes, tile, dtype))
+    tiles = np.zeros((mc.round_capacity(len(active)) if pad else len(active),
+                      3), np.int32)
+    tiles[:len(active)] = active
+    return torch.as_tensor(tiles, device=device), len(active)
+
+
+def check_tile_order(verts, faces, axes, tile):
+    """Triangles of a tiles run come in (tile, cell) order and no vertex is
+    shared between tiles: the tile of each triangle (from its centroid in
+    index coordinates) never decreases along the faces, and every vertex
+    is used by triangles of one tile only."""
+    import numpy as np
+
+    step = np.array([a[1] - a[0] for a in axes])
+    origin = np.array([a[0] for a in axes])
+    centroid = (verts[faces].mean(axis=1) - origin) / step
+    t3 = np.floor(centroid).astype(np.int64) // tile
+    nt = [-(-len(a) // tile) for a in axes]
+    tid = (t3[:, 0] * nt[1] + t3[:, 1]) * nt[2] + t3[:, 2]
+    check(bool(np.all(np.diff(tid) >= 0)),
+          "triangle order: the tile index never decreases along %d faces "
+          "(%d tiles hold triangles)" % (len(faces), len(np.unique(tid))))
+    lo = np.full(len(verts), np.iinfo(np.int64).max)
+    hi = np.full(len(verts), -1)
+    np.minimum.at(lo, faces.reshape(-1), np.repeat(tid, 3))
+    np.maximum.at(hi, faces.reshape(-1), np.repeat(tid, 3))
+    check(bool(np.all(lo == hi)) and bool(np.all(np.diff(lo) >= 0)),
+          "every vertex belongs to one tile, and vertices are in tile order")
+
+
+def ptxas_report():
+    """Registers and spill bytes of the four eval_tiles entry kernels, for
+    a narrow and three wide expression trees, from ``nvcc -Xptxas -v``."""
+    import re
+    import tempfile
+
+    import sdf_torch as sp
+    from sdf_torch import _build
+    from sdf_torch.core import eval_classify
+    from sdf_torch.models import zoo
+
+    flags = [f for f in _build.FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    models = {"example": example(sp), "blobby": zoo.blobby(),
+              "knurling": zoo.knurling(), "weave": zoo.weave()}
+    for name, f in models.items():
+        src = eval_classify.tile_kernel_source(f)
+        with tempfile.TemporaryDirectory() as tmp:
+            cu = os.path.join(tmp, "k.cu")
+            with open(cu, "w") as fp:
+                fp.write(src)
+            out = subprocess.run(
+                [_build.nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+                 os.path.join(tmp, "k.cubin"), cu],
+                capture_output=True, text=True, check=True).stderr
+        print("%s (%d ops/point):" % (name, body_op_count(src)))
+        for fn, info in re.findall(
+                r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ registers[^\n]*)",
+                out, re.S):
+            kind = "%s, %s" % ("double" if "IdL" in fn else "float",
+                               "clamp" if "Lb1" in fn else "fields")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", info)
+            regs = re.search(r"Used (\d+) registers", info).group(1)
+            print("  %-14s %s registers, spill stores %s B, loads %s B"
+                  % (kind, regs, spill.group(1), spill.group(2)))
+    return 0
 
 
 def main():
     import numpy as np
     import torch
+
+    if "--ptxas" in sys.argv[1:]:
+        return ptxas_report()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -266,7 +409,8 @@ def main():
     try:
         import sdf_torch as sp
         from sdf_torch import _build
-        from sdf_torch.core import compact, engine, eval_classify, mc, mc33
+        from sdf_torch.core import (compact, engine, eval_classify, hybrid, mc,
+                                    mc33, sparse)
         from sdf_torch.models import zoo
     except ImportError as e:
         print("chip_smoke: the sdf_torch package is missing: %s" % e,
@@ -287,10 +431,21 @@ def main():
     # -- phase 2 ---------------------------------------------------------------
     print("== phase 2: build", flush=True)
     f = example(sp)
+    blobby = zoo.blobby()
+    gathers = gather_models(sp)
+    gather_nf = {"rotated": 1, "circular": 2}
     t0 = time.time()
     libs = _build.build_many([
         ("eval_classify", eval_classify.kernel_source(f)),
         ("eval_classify", eval_classify.kernel_source(zoo.saddle())),
+        ("eval_classify", eval_classify.kernel_source(blobby)),
+        ("eval_tiles", eval_classify.tile_kernel_source(f)),
+        ("eval_tiles", eval_classify.tile_kernel_source(blobby)),
+    ] + [
+        ("eval_tiles", eval_classify.tile_kernel_source(
+            hybrid.to_kernel_tree(g), gather_nf[k]))
+        for k, g in gathers.items()
+    ] + [
         ("ntri", _build.source("ntri.cu")),
         ("compact", _build.source("compact.cu")),
         ("classify_ext", _build.source("classify_ext.cu")),
@@ -504,14 +659,286 @@ def main():
         )
     del vol32, case32, active, emask, aflat
 
+    # B6 and B7 against their plain version (_eval_tiles + _cell_cases), bit
+    # for bit, on the tile lists the tiled path builds.  B7 takes the axes
+    # padded by one tile; without fields it must equal B6.
+    b6 = eval_classify.eval_tiles_and_classify_batched
+    b7 = eval_classify.eval_tiles_and_classify
+    padded = lambda axes, tile: [
+        np.concatenate([a, np.full(tile, a[-1])]) for a in axes]
+
+    def same_bits(a, b):
+        ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(ints), b.view(ints))
+
+    def tiles_bound(vols, nf, ops_pt, name):
+        ntc, TS = vols.shape[0], vols.shape[1]
+        nbytes = vols.numel() * vols.element_size() * (1 + nf) \
+            + ntc * (TS - 1) ** 3 * 4 + ntc * 12
+        return bound_ms(nbytes, ops_pt * vols.numel()
+                        + 16 * ntc * (TS - 1) ** 3, name)
+
+    def hold_tile_shapes(vols, case, tiles, nt, axes, tile, name, keep):
+        """Kernels B2 to B5 on what the tiled path gives them for these tile
+        volumes (kernel B6's outputs): each against its plain version, with
+        its times; the numbers go under ``keep`` into the kernels line."""
+        ntc = len(tiles)
+        cshape = tuple(len(a) - 1 for a in axes)
+        live = torch.arange(ntc, device=dev) < nt
+        rows = {}
+        ek = mc33.classify_ext(vols, base_case=case)
+        ep = mc33._classify_ext_plain(vols, base_case=case)
+        check(torch.equal(ek, ep), "B2 classify_ext %s on %s tile volumes "
+              "with B6's cases: bit-equal to plain" % (name, tuple(vols.shape)))
+        ncell = case.numel()
+        rows["classify_ext"] = (
+            max_abs_diff([(ek, ep)]),
+            device_ms(lambda: mc33.classify_ext(vols, base_case=case)),
+            device_ms(lambda: mc33._classify_ext_plain(vols, base_case=case),
+                      reps=3, warm=1),
+            bound_ms(vols.numel() * vols.element_size() + 8 * ncell,
+                     CLASSIFY_EXT_OPS_PER_CELL * ncell, name), None, ncell)
+        del ep
+        table = mc.get_tables("lewiner").on(dev, "ntri")
+        got, want = mc.ntri_of(ek, "lewiner"), mc._ntri_plain(ek, table)
+        check(torch.equal(got, want), "B3 ntri on the %s tile case grid "
+              "equal to plain" % (tuple(ek.shape),))
+        rows["ntri"] = (
+            max_abs_diff([(got, want)]),
+            device_ms(lambda: mc.ntri_of(ek, "lewiner")),
+            device_ms(lambda: mc._ntri_plain(ek, table)),
+            bound_ms(8 * ncell),
+            device_ms(lambda: torch.index_select(table, 0, ek.reshape(-1))),
+            ncell)
+        _, _, n_cells, _, n_edges, emask = sparse._count_tiles(
+            vols, tiles, live, cshape, tile, ek, "lewiner")
+        valid = sparse._cell_valid(tiles, live, cshape, tile)
+        cells = ((got * valid) > 0).reshape(-1)
+        del got, want, valid, ek
+        check(int(cells.sum()) == int(n_cells), "the tile-cell mask holds "
+              "the %d cells _count_tiles counted" % int(n_cells))
+        cap = mc.round_capacity(int(n_cells))
+        got, want = (compact.indices_of(cells, cap),
+                     compact._indices_of_plain(cells, cap))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "B4 indices_of on the %d tile-cell slots (%d set) equal to "
+              "plain" % (cells.numel(), int(n_cells)))
+        rows["indices_of"] = (
+            max_abs_diff(list(zip(got, want))),
+            device_ms(lambda: compact.indices_of(cells, cap)),
+            device_ms(lambda: compact._indices_of_plain(cells, cap), reps=5,
+                      warm=1),
+            bound_ms(cells.numel() + 4 * cap),
+            device_ms(lambda: torch.nonzero(cells)), cells.numel())
+        m = emask.reshape(-1)
+        ecap = mc.round_capacity(int(n_edges))
+        got, want = (compact.indices_and_ranktable_of(m, ecap),
+                     compact._ranktable_plain(m, ecap))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "B5 indices_and_ranktable_of on the %d per-tile [x|y|z] edge "
+              "slots (%d set) equal to plain" % (m.numel(), int(n_edges)))
+        rows["indices_and_ranktable_of"] = (
+            max_abs_diff(list(zip(got, want))),
+            device_ms(lambda: compact.indices_and_ranktable_of(m, ecap)),
+            device_ms(lambda: compact._ranktable_plain(m, ecap), reps=5,
+                      warm=1),
+            bound_ms(m.numel() + 4 * ecap + 8 * (-(-m.numel() // 32))),
+            None, m.numel())
+        for k, (err, ms, pms, (b, by), lms, size) in rows.items():
+            print("  %s on the tiles, %s: %d slots kernel_ms %.4f plain_ms "
+                  "%.4f library_ms %s bound_ms %.4f (%s) max_abs_err %g"
+                  % (k, name, size, ms, pms,
+                     "%.4f" % lms if lms else "null", b, by, err))
+            if keep:
+                kernels[k]["tiles_path"] = dict(
+                    slots=size, max_abs_err=err, ms=ms, plain_ms=pms,
+                    bound_ms=b, bound_by=by, library_ms=lms)
+
+    tile_cases = [
+        ("blobby 2^26", blobby, 2**26, 32, None, True),
+        ("example 2^22", f, 2**22, 32, None, True),
+        ("example 2^22", f, 2**22, 8, None, True),
+        ("example 2^22, a list of one", f, 2**22, 32, 1, False),
+    ]
+    for label, g, samples, tile, first, pad in tile_cases:
+        axes = grid_axes(g, samples, torch.float32)
+        tiles, nt = kept_tiles(g, axes, tile, torch.float32, dev, pad)
+        if first:
+            tiles, nt = tiles[nt - first: nt].contiguous(), first
+        ops_pt = body_op_count(eval_classify.tile_kernel_source(g))
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            vk, ck = b6(g, *axes, tiles, tile, dt)
+            v7, c7 = b7(g, *padded(axes, tile), tiles, tile, dt)
+            vp = eval_classify._eval_tiles(g, *axes, tiles, tile, dt)
+            cp = mc._cell_cases(vp)
+            check(same_bits(vk, vp) and torch.equal(ck, cp),
+                  "B6 %s tile %d %s: %d tiles (%d live) vols and cases "
+                  "bit-equal to plain" % (label, tile, name, len(tiles), nt))
+            check(same_bits(v7, vk) and torch.equal(c7, ck),
+                  "B7 without fields equal to B6 (%s tile %d %s)"
+                  % (label, tile, name))
+            if label != "blobby 2^26":
+                continue
+            err = max_abs_diff([(vk, vp), (ck, cp)])
+            ms = device_ms(lambda: b6(g, *axes, tiles, tile, dt))
+            ms7 = device_ms(lambda: b7(g, *padded(axes, tile), tiles, tile, dt))
+            pms = device_ms(lambda: (
+                mc._cell_cases(eval_classify._eval_tiles(
+                    g, *axes, tiles, tile, dt))), reps=3, warm=1)
+            b, by = tiles_bound(vk, 0, ops_pt, name)
+            print("  B6 %s %s: %d tiles kernel_ms %.4f (B7 without fields "
+                  "%.4f) plain_ms %.4f bound_ms %.4f (%s; %d ops/point) "
+                  "max_abs_err %g" % (label, name, len(tiles), ms, ms7, pms,
+                                      b, by, ops_pt, err))
+            hold_tile_shapes(vk, ck, tiles, nt, axes, tile, name,
+                             dt == torch.float32)
+            if dt == torch.float32:
+                kernels["eval_tiles_batched"] = dict(
+                    name="eval_tiles_batched", route="cuda",
+                    source="sdf_torch/csrc/eval_tiles.cu",
+                    replaces="sdf_tpu/core/pallas_eval.py:262",
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                    bound_by=by, library_ms=None,
+                )
+        del vk, ck, v7, c7, vp, cp
+
+    # The routed run's speculative dense pass gives B1, B2 and B3 blobby's
+    # whole 2^26 grid, another expression and 16 times the cells of the
+    # example's grid above: held against plain there too (float32, the
+    # default).
+    axes = grid_axes(blobby, 2**26, torch.float32)
+    vk, ck = eval_classify.eval_and_classify(blobby, *axes, torch.float32, dev)
+    vp, cp = eval_classify._eval_classify_plain(blobby, *axes, torch.float32,
+                                                dev)
+    check(same_bits(vk, vp) and torch.equal(ck, cp),
+          "B1 eval_classify on blobby's %s grid: vol and case bit-equal to "
+          "plain" % (tuple(vk.shape),))
+    err1 = max_abs_diff([(vk, vp), (ck, cp)])
+    del vp, cp
+    ek = mc33.classify_ext(vk, base_case=ck)
+    ep = mc33._classify_ext_plain(vk, base_case=ck)
+    check(torch.equal(ek, ep), "B2 classify_ext on that volume bit-equal to "
+          "plain")
+    err2 = max_abs_diff([(ek, ep)])
+    del ep
+    table = mc.get_tables("lewiner").on(dev, "ntri")
+    got, want = mc.ntri_of(ek, "lewiner"), mc._ntri_plain(ek, table)
+    check(torch.equal(got, want), "B3 ntri on that case grid equal to plain")
+    err3 = max_abs_diff([(got, want)])
+    del got, want
+    ncell, npts26 = ck.numel(), vk.numel()
+    ops_pt = body_op_count(eval_classify.kernel_source(blobby))
+    dense_rows = {
+        "eval_classify": (
+            err1,
+            device_ms(lambda: eval_classify.eval_and_classify(
+                blobby, *axes, torch.float32, dev), reps=5, warm=1),
+            device_ms(lambda: eval_classify._eval_classify_plain(
+                blobby, *axes, torch.float32, dev), reps=2, warm=1),
+            bound_ms(4 * npts26 + 4 * ncell, ops_pt * npts26 + 16 * ncell),
+            None),
+        "classify_ext": (
+            err2,
+            device_ms(lambda: mc33.classify_ext(vk, base_case=ck), reps=5,
+                      warm=1),
+            device_ms(lambda: mc33._classify_ext_plain(vk, base_case=ck),
+                      reps=2, warm=1),
+            bound_ms(4 * npts26 + 8 * ncell,
+                     CLASSIFY_EXT_OPS_PER_CELL * ncell), None),
+        "ntri": (
+            err3,
+            device_ms(lambda: mc.ntri_of(ek, "lewiner"), reps=5, warm=1),
+            device_ms(lambda: mc._ntri_plain(ek, table), reps=5, warm=1),
+            bound_ms(8 * ncell),
+            device_ms(lambda: torch.index_select(table, 0, ek.reshape(-1)),
+                      reps=5, warm=1)),
+    }
+    for k, (err, ms, pms, (b, by), lms) in dense_rows.items():
+        print("  %s on blobby's 2^26 grid (%d cells): kernel_ms %.4f plain_ms "
+              "%.4f library_ms %s bound_ms %.4f (%s) max_abs_err %g"
+              % (k, ncell, ms, pms, "%.4f" % lms if lms else "null", b, by,
+                 err))
+        kernels[k]["routed_dense_pass"] = dict(
+            slots=ncell, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+            bound_by=by, library_ms=lms)
+    del vk, ck, ek
+
+    # B7 with fields: the gather-marked table lookup, recorded at rotated
+    # points (one field) and under circular_array (two fields), against the
+    # plain version reading the same fields and against the expression
+    # evaluated whole with torch ops.
+    for gname, g in gathers.items():
+        axes = grid_axes(g, 2**22, torch.float32, GATHER_BOUNDS)
+        tiles, nt = kept_tiles(g, axes, 32, torch.float32, dev)
+        pax = padded(axes, 32)
+        tree = hybrid.to_kernel_tree(g)
+        nf = gather_nf[gname]
+        ops_pt = body_op_count(eval_classify.tile_kernel_source(tree, nf))
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            vk, ck = b7(g, *pax, tiles, 32, dt)
+            fields = hybrid.record_tiles(
+                g, *eval_classify._axes(*pax, dt, dev), tiles, 32)
+            check(len(fields) == nf, "%s records %d field(s)" % (gname, nf))
+            vp = eval_classify._eval_tiles(tree, *pax, tiles, 32, dt,
+                                           clamp=False, fields=fields)
+            whole = eval_classify._eval_tiles(g, *pax, tiles, 32, dt,
+                                              clamp=False)
+            cp = mc._cell_cases(vp)
+            check(same_bits(vk, vp) and torch.equal(ck, cp)
+                  and same_bits(vk, whole),
+                  "B7 %s %s: %d tiles (%d live), %d field(s), bit-equal to "
+                  "plain and to the whole expression"
+                  % (gname, name, len(tiles), nt, nf))
+            if gname != "rotated":
+                continue
+            err = max_abs_diff([(vk, vp), (ck, cp)])
+            # ms is the wrapper the path calls: the torch pre-pass that
+            # records the fields, then the kernel.  plain_ms is the same
+            # function with torch ops only (the whole expression on the
+            # tile windows, then the cases).  Beside them the pre-pass and
+            # the kernel alone, launched on fields recorded once, with a
+            # counter of its own.
+            ms = device_ms(lambda: b7(g, *pax, tiles, 32, dt))
+            pms = device_ms(lambda: mc._cell_cases(eval_classify._eval_tiles(
+                g, *pax, tiles, 32, dt, clamp=False)), reps=3, warm=1)
+            bare = types.SimpleNamespace(launches=0)
+            kms = device_ms(lambda: eval_classify._launch_tiles(
+                tree, *pax, tiles, 32, dt, False, fields, bare))
+            rms = device_ms(lambda: hybrid.record_tiles(
+                g, *eval_classify._axes(*pax, dt, dev), tiles, 32),
+                reps=3, warm=1)
+            b, by = tiles_bound(vk, 0, ops_pt, name)
+            print("  B7 %s %s: %d tiles wrapper_ms %.4f (pre-pass %.4f + "
+                  "kernel %.4f) plain_ms %.4f bound_ms %.4f (%s; %d "
+                  "ops/point in the kernel body; the fields are the "
+                  "wrapper's own, so the bound counts no field bytes) "
+                  "max_abs_err %g" % (gname, name, len(tiles), ms, rms, kms,
+                                      pms, b, by, ops_pt, err))
+            if dt == torch.float32:
+                kernels["eval_tiles"] = dict(
+                    name="eval_tiles", route="cuda",
+                    source="sdf_torch/csrc/eval_tiles.cu",
+                    replaces="sdf_tpu/core/pallas_eval.py:163",
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                    bound_by=by, library_ms=None, prepass_ms=rms,
+                    kernel_only_ms=kms,
+                )
+        del vk, ck, vp, cp, whole, fields
+
     wrappers = {
         "eval_classify": eval_classify.eval_and_classify,
         "classify_ext": mc33.classify_ext,
         "ntri": mc.ntri_of,
         "indices_of": compact.indices_of,
         "indices_and_ranktable_of": compact.indices_and_ranktable_of,
+        "eval_tiles_batched": b6,
+        "eval_tiles": b7,
     }
-    fast_path = [k for k in wrappers if k != "classify_ext"]
+    dense_path = ["eval_classify", "classify_ext", "ntri", "indices_of",
+                  "indices_and_ranktable_of"]
+    fast_path = [k for k in dense_path if k != "classify_ext"]
 
     def drive(f=None, **kw):
         """One generate() with every launch count set to 0 just before and
@@ -524,17 +951,17 @@ def main():
         counts = {k: w.launches for k, w in wrappers.items()}
         return pts, counts
 
-    def report_warm(label, **kw):
+    def report_warm(label, make=lambda: example(sp), **kw):
         """Warm end-to-end times and one profiled run of generate(**kw)."""
         warm = []
         for _ in range(5):
             t0 = time.perf_counter()
-            sp.generate(example(sp), verbose=False, **kw)
+            sp.generate(make(), verbose=False, **kw)
             warm.append(time.perf_counter() - t0)
         print("  %s warm end-to-end s: median %.4f min %.4f (5 runs)" % (
             label, statistics.median(warm), min(warm)))
         wall, busy, per = timeline(lambda: sp.generate(
-            example(sp), verbose=False, **kw))
+            make(), verbose=False, **kw))
         print("  profiled warm run: wall %.2f ms, device busy %.3f ms "
               "(%.1f%%), idle %.1f%%" % (wall, busy, 100 * busy / wall,
                                          100 - 100 * busy / wall))
@@ -544,7 +971,7 @@ def main():
         # Where the host spends the call: the port's own functions by
         # cumulative time (cProfile slows the call; read the shares).
         prof = cProfile.Profile()
-        prof.runcall(sp.generate, example(sp), verbose=False, **kw)
+        prof.runcall(sp.generate, make(), verbose=False, **kw)
         rows = [(ct, nc, "%s:%s" % (os.path.basename(fn), name))
                 for (fn, _, name), (_, nc, _, ct, _)
                 in pstats.Stats(prof).stats.items() if "sdf_torch" in fn]
@@ -599,7 +1026,8 @@ def main():
     first_s = time.perf_counter() - t0
     first_stats = dict(engine.LAST_STATS)
     print("  launches: %s" % counts)
-    for k, c in counts.items():
+    for k in dense_path:
+        c = counts[k]
         check(c >= 1, "%s launched on the default path (%d)" % (k, c))
         kernels[k]["launches"] = c
     check(len(pts) // 3 == TRIS_2P22,
@@ -643,8 +1071,8 @@ def main():
     t0 = time.perf_counter()
     pts, counts = drive(samples=2**24, dtype=torch.float64)
     print("  %.2f s, launches: %s" % (time.perf_counter() - t0, counts))
-    for k, c in counts.items():
-        check(c >= 1, "%s launched at 2^24 (%d)" % (k, c))
+    for k in dense_path:
+        check(counts[k] >= 1, "%s launched at 2^24 (%d)" % (k, counts[k]))
     check(len(pts) // 3 == TRIS_2P24,
           "%d triangles (want %d)" % (len(pts) // 3, TRIS_2P24))
     h = soup_hash(pts)
@@ -702,13 +1130,165 @@ def main():
           % (soups["lewiner"][0], soups["fast"][0]))
     check(soups["lewiner"][1] != soups["fast"][1], "the variants' soups differ")
 
+
+    # -- phase 9 ---------------------------------------------------------------
+    print("== phase 9: the tiled path at full width: generate(zoo.blobby(), "
+          "samples=2**26) at its defaults", flush=True)
+
+    def clear_memos():
+        for memo in (engine._BOUNDS_MEMO, engine._COUNTS_MEMO,
+                     engine._SKIP_MEMO, sparse._COUNTS_MEMO):
+            memo.clear()
+
+    clear_memos()
+    t0 = time.perf_counter()
+    pts, counts = drive(zoo.blobby(), samples=2**26)
+    first_s = time.perf_counter() - t0
+    first_stats = dict(engine.LAST_STATS)
+    print("  first call %.3f s, launches: %s" % (first_s, counts))
+    print("  phases of the first call (s): %s" % json.dumps(first_stats))
+    check(first_stats.get("auto_tiles", 0) >= engine.AUTO_TILES_THRESHOLD,
+          "auto_tiles = %s: the cull routed the run to the tiles"
+          % first_stats.get("auto_tiles"))
+    check("sparse_tiles" in first_stats, "the sparse_tiles phase ran")
+    for k in ("eval_tiles_batched", "classify_ext", "ntri", "indices_of",
+              "indices_and_ranktable_of"):
+        check(counts[k] >= 1, "%s launched on the routed path (%d)"
+              % (k, counts[k]))
+    check(counts["classify_ext"] == 2 and counts["ntri"] >= 2,
+          "classify_ext and ntri ran on the dense grid and again on the tiles")
+    check(counts["eval_tiles"] == 0, "the per-tile kernel with fields is not "
+          "on a gather-free path")
+    kernels["eval_tiles_batched"]["launches"] = counts["eval_tiles_batched"]
+    # This run's launches of the earlier kernels, beside the numbers phase 3
+    # took at its shapes: B1 once (the dense pass), B2 and B3 on the dense
+    # grid and again on the tiles, B4 and B5 on the tiles.
+    for k in dense_path:
+        kernels[k]["routed_launches"] = counts[k]
+    routed_tris = len(pts) // 3
+    check(bool(np.isfinite(pts).all()) and pts.shape[1] == 3 and routed_tris,
+          "finite (3T, 3) vertices, %d triangles" % routed_tris)
+    routed_hash = soup_hash(pts)
+    del pts
+    # The dense pipeline under the same cull mask: the same call with the
+    # routing switched off, so generate() meshes what it had speculated.
+    threshold = engine.AUTO_TILES_THRESHOLD
+    engine.AUTO_TILES_THRESHOLD = 2.0
+    try:
+        pts, dcounts = drive(zoo.blobby(), samples=2**26)
+    finally:
+        engine.AUTO_TILES_THRESHOLD = threshold
+    engine._COUNTS_MEMO.clear()  # that run's counts must not stop the routing
+    check("auto_tiles" not in engine.LAST_STATS and dcounts["eval_tiles_batched"]
+          == 0, "reference run: dense pipeline under the same cull mask "
+          "(%d skipped of %d batches)" % (engine.LAST_STATS["skipped"],
+                                          engine.LAST_STATS["batches"]))
+    check(len(pts) // 3 == routed_tris and soup_hash(pts) == routed_hash,
+          "canonical soup of the routed run equal to the dense pipeline's "
+          "under the same cull mask (%d triangles)" % routed_tris)
+    del pts
+    pts, _ = drive(zoo.blobby(), samples=2**26, sparse=False)
+    print("  sparse=False (no cull) meshes %d triangles, the routed run %d: %s"
+          % (len(pts) // 3, routed_tris,
+             "equal" if len(pts) // 3 == routed_tris else
+             "the cull removes surface of this inexact SDF"))
+    del pts
+    verts, faces = sp.generate(zoo.blobby(), samples=2**26, verbose=False,
+                               output="mesh")
+    check(len(faces) == routed_tris and engine.LAST_STATS.get("auto_tiles"),
+          "output='mesh' on the routed path: %d vertices, %d faces"
+          % (len(verts), len(faces)))
+    check_tile_order(verts, faces, grid_axes(zoo.blobby(), 2**26,
+                                             torch.float32), 32)
+    del verts, faces
+    t0 = time.perf_counter()
+    again, counts2 = drive(zoo.blobby(), samples=2**26)
+    print("  second call %.3f s (bounds and tiles counts memoized), launches "
+          "%s" % (time.perf_counter() - t0, counts2))
+    check(soup_hash(again) == routed_hash, "second call: the same soup")
+    del again
+    sparse.PROFILE = True
+    try:
+        report_warm("routed blobby 2^26", zoo.blobby, samples=2**26)
+    finally:
+        sparse.PROFILE = False
+
+    # -- phase 10 --------------------------------------------------------------
+    print("== phase 10: generate(sparse='tiles') on the pinned model, and "
+          "blobby against the CPU", flush=True)
+    for variant in ("lewiner", "fast"):
+        dense, _ = drive(samples=2**22, mc_variant=variant)
+        pts, counts = drive(samples=2**22, mc_variant=variant, sparse="tiles")
+        print("  %s launches: %s" % (variant, counts))
+        check(counts["eval_tiles_batched"] == 1 and counts["eval_classify"] == 0,
+              "sparse='tiles' evaluates with B6 only (%s)" % variant)
+        check(len(pts) // 3 == TRIS_2P22, "%d triangles under %s (want %d)"
+              % (len(pts) // 3, variant, TRIS_2P22))
+        check(soup_hash(pts) == soup_hash(dense),
+              "canonical soup equal to the dense run's (%s)" % variant)
+        check(("mc33_conflicted_cells" not in engine.LAST_STATS),
+              "no conflicted-cell count on an explicit tiles run")
+        verts, faces = sp.generate(example(sp), samples=2**22, verbose=False,
+                                   mc_variant=variant, sparse="tiles",
+                                   output="mesh")
+        check(np.array_equal(verts[faces.reshape(-1)], pts),
+              "output='mesh': verts[faces] is the soup (%d vertices)"
+              % len(verts))
+        check_tile_order(verts, faces, grid_axes(example(sp), 2**22,
+                                                 torch.float32), 32)
+        del dense, pts, verts, faces
+    report_warm("example 2^22 sparse='tiles'", samples=2**22, sparse="tiles")
+    pts, counts = drive(zoo.blobby(), samples=2**22, sparse="tiles")
+    nskip, nb = engine.LAST_STATS["skipped"], engine.LAST_STATS["batches"]
+    t0 = time.time()
+    cpu = sp.generate(zoo.blobby(), samples=2**22, verbose=False,
+                      sparse="tiles", device="cpu")
+    print("  blobby 2^22 sparse='tiles': %d triangles, %d of %d batches kept; "
+          "device='cpu' run %.1f s" % (len(pts) // 3, nb - nskip, nb,
+                                       time.time() - t0))
+    check(np.array_equal(pts, cpu), "blobby 2^22 tiles soup bit-equal to the "
+          "device='cpu' run")
+    del pts, cpu
+
+    # -- phase 11 --------------------------------------------------------------
+    print("== phase 11: a gather-bearing expression under sparse='tiles'",
+          flush=True)
+    for gname in gathers:
+        kw = dict(samples=2**22 if gname == "rotated" else 2**20,
+                  bounds=GATHER_BOUNDS, sparse="tiles")
+        pts, counts = drive(gather_models(sp)[gname], **kw)
+        print("  %s: %d triangles, launches %s" % (gname, len(pts) // 3, counts))
+        check(counts["eval_tiles"] == 1 and counts["eval_tiles_batched"] == 0
+              and counts["eval_classify"] == 0,
+              "kernel B7 evaluates the %s model" % gname)
+        if gname == "rotated":
+            kernels["eval_tiles"]["launches"] = counts["eval_tiles"]
+        check(len(pts) > 0 and bool(np.isfinite(pts).all()),
+              "finite vertices (%s)" % gname)
+        cpu = sp.generate(gather_models(sp)[gname], verbose=False,
+                          device="cpu", **kw)
+        check(np.array_equal(pts, cpu),
+              "%s soup bit-equal to the device='cpu' run" % gname)
+        # At the defaults (sparse=True) such an expression goes to the tiles
+        # at once: the dense kernel takes no field inputs.
+        del kw["sparse"]
+        auto, counts = drive(gather_models(sp)[gname], **kw)
+        check(engine.LAST_STATS.get("gather_tiles") is True
+              and counts["eval_tiles"] == 1 and counts["eval_classify"] == 0
+              and np.array_equal(auto, pts),
+              "%s at the defaults: routed to kernel B7, the same soup" % gname)
+        del pts, cpu, auto
+
     # -- result ------------------------------------------------------------------
-    order = ["eval_classify", "classify_ext", "ntri", "indices_of",
-             "indices_and_ranktable_of"]
+    order = dense_path + ["eval_tiles_batched", "eval_tiles"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys}
-                                  for n in order]}))
+    more = ["routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
+            "kernel_only_ms"]
+    print(json.dumps({"kernels": [
+        {**{k: kernels[n][k] for k in keys},
+         **{k: kernels[n][k] for k in more if k in kernels[n]}}
+        for n in order]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

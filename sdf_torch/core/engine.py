@@ -1,5 +1,5 @@
 """Grid sampling + meshing engine (counterpart of ``sdf_tpu.core.engine``):
-the single-device dense ``generate()``.
+the single-device ``generate()``, dense and tiled.
 
   * bounds: the reference's 16^3 probe-grid refinement, evaluated on the
     CPU in the compute dtype with float64 loop state (machine-independent
@@ -14,6 +14,12 @@ the single-device dense ``generate()``.
   * emit: ``mc.gather_emit_indexed`` (kernels B4, B3, B5) into buffers
     sized by ``mc.round_capacity``, packed when float32;
   * decode: ``mc.unpack_indexed`` on the host.
+
+``sparse="tiles"``, or ``sparse=True`` once the fetched cull mask shows that
+at least ``AUTO_TILES_THRESHOLD`` of the batches are culled, runs the tiled
+pipeline of ``core.sparse`` instead: only the kept tiles are evaluated
+(kernel B6, or B7 for gather-bearing expressions), then B2, B3, B4 and B5
+on the tile volumes.  A routed run discards its speculative dense result.
 
 Bounds and counts are deterministic in the expression, so both are
 memoized on ``utils.checkpoint.fingerprint``: a repeat call on an
@@ -35,15 +41,16 @@ import torch
 from ..io import meshfmt, stl
 from ..utils import checkpoint as ckpt
 from ..utils import progress
-from . import eval_classify, mc, mc33
+from . import eval_classify, hybrid, mc, mc33, node, sparse as sparse_mod
 from .node import Points, cast, resolve_device, upload
 
 WORKERS = None
 SAMPLES = 2**22
 BATCH_SIZE = 32
 
-# Culled-batch fraction at which the JAX package routes sparse=True to its
-# tiled path (not ported yet: ROADMAP A11).
+# Culled-batch fraction at which sparse=True routes to the tiled path: the
+# dense pipeline evaluates everything and masks cells, a good trade only
+# when little is culled.  Opt out with sparse=False, force with "tiles".
 AUTO_TILES_THRESHOLD = 0.6
 
 # Memos of deterministic results, keyed on checkpoint.fingerprint (structure,
@@ -53,7 +60,8 @@ AUTO_TILES_THRESHOLD = 0.6
 # ``.k()`` tags and parameter edits change the fingerprint and miss.
 _BOUNDS_MEMO = {}
 _COUNTS_MEMO = {}
-_MEMO_MAX = 256
+# The host cull mask of sparse="tiles" per (expression, grid, dtype, batch).
+_SKIP_MEMO = {}
 _EMPTY = np.empty(0)
 
 # Structured report of the most recent generate(): phase wall times in
@@ -159,14 +167,6 @@ def _fingerprint_or_none(sdf, X, Y, Z, extras):
         return None
 
 
-def _memo_put(memo, key, value):
-    if key is None:
-        return
-    if len(memo) > _MEMO_MAX:
-        memo.clear()
-    memo[key] = value
-
-
 def _estimate_bounds(sdf, dtype=torch.float32):
     """Probe-grid bounds estimation (see ``_estimate_bounds_host``),
     memoized: the refinement is deterministic in the expression, so repeat
@@ -182,28 +182,7 @@ def _estimate_bounds(sdf, dtype=torch.float32):
             "bounds estimation failed (no surface found); pass bounds= explicitly"
         )
     out = (tuple(lo.tolist()), tuple(hi.tolist()))
-    _memo_put(_BOUNDS_MEMO, key, out)
-    return out
-
-
-def _fetch(tensors):
-    """Tensors of any dtypes on one device -> numpy arrays of the same
-    shapes, in ONE device-to-host transfer (each ``.cpu()`` waits for the
-    card once): the tensors travel as bytes, each padded to 8."""
-    parts, metas = [], []
-    for t in tensors:
-        b = t.contiguous().reshape(-1).view(torch.uint8)
-        pad = (-b.numel()) % 8
-        if pad:
-            b = torch.cat([b, b.new_zeros(pad)])
-        parts.append(b)
-        metas.append((b.numel(), t.numel() * t.element_size(), t))
-    flat = torch.cat(parts).cpu().numpy()
-    out, at = [], 0
-    for padded, nbytes, t in metas:
-        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(flat[at: at + nbytes].view(dt).reshape(tuple(t.shape)))
-        at += padded
+    ckpt.memo_put(_BOUNDS_MEMO, key, out)
     return out
 
 
@@ -315,6 +294,129 @@ def _debug_triangles(X, Y, Z, tiles, batch_size, inset=0.25):
     return corners[:, _DEBUG_BOX_IDX, :].reshape(-1, 3).astype(np.float64)
 
 
+def _variant_tag(mc_variant):
+    """The variant's part of a memo or checkpoint key (none for the
+    tables that were the only ones once)."""
+    return (mc_variant,) if mc_variant != "default" else ()
+
+
+def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
+                bar, num_batches):
+    """The dense pipeline of ``generate()``: returns ``(indexed (verts,
+    faces), per_tile, skip, conflicted or None)`` with host arrays.
+
+    ``speculate`` (sparse=True): the cull test is dispatched but not
+    fetched, the dense pipeline is dispatched behind it with the
+    device-resident mask, and the mask comes back with the counts in one
+    transfer.  If the fetched mask then shows at least AUTO_TILES_THRESHOLD
+    of the batches culled, the dense result is discarded and ``indexed`` is
+    None: the caller meshes the kept tiles instead (such a run is never
+    put in the counts memo)."""
+    sshape = (-(-len(X) // s), -(-len(Y) // s), -(-len(Z) // s))
+    if speculate:
+        with _phase("skip_dispatch", stats):
+            skip_dev, sshape = _skip_mask_device(sdf, X, Y, Z, s, dtype,
+                                                 device)
+        skip3d = skip_dev.reshape(sshape)
+    else:
+        skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
+
+    with _phase("eval_classify", stats):
+        vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
+                                                    device)
+    if mc_variant != "default":
+        # Extend kernel B1's 8-bit codes with the variant's saddle/interior
+        # bits (reusing them instead of re-deriving corner signs).
+        with _phase("classify_ext", stats):
+            case = mc33.classify_ext(vol, base_case=case)
+    bar.update(num_batches * 0.6)
+
+    cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
+    keep = _expand_tile_mask(~skip3d, s, cshape)
+    tshape = tuple(-(-c // s) for c in cshape)
+    with _phase("mc_count", stats):
+        ncells_dev, total, n_edges, per_tile_dev, active, emask = (
+            mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
+        )
+    confl = None
+    pending = [per_tile_dev, skip3d]  # statistics not fetched yet
+    counts = [ncells_dev, total, n_edges]
+    if mc_variant == "lewiner":
+        # Observability for majority-voted table entries; rides the counts
+        # transfer below.
+        counts.append(mc33.count_conflicted(case, keep))
+
+    # Counts are deterministic in (expression, grid, dtype, cull mode,
+    # variant, and the device type: sin and cos differ between the CPU and
+    # the card): a repeat generate() of an unchanged model reuses them,
+    # dispatches emit at once and lets the statistics ride the mesh
+    # transfer.  A non-speculative run reaches here only with the all-False
+    # mask of sparse=False, so the flag stands for the mask.
+    ckey = _fingerprint_or_none(
+        sdf, X, Y, Z,
+        ("counts", str(dtype), s, bool(speculate), device.type)
+        + _variant_tag(mc_variant),
+    )
+    memo = _COUNTS_MEMO.get(ckey) if ckey is not None else None
+    if memo is not None:
+        n_cells, n, ne, confl = memo
+        if n_cells == 0:
+            per_tile, skip = node.fetch(pending)
+            pending = []
+    else:
+        # The one host sync before emit: every count, the per-tile counters
+        # and the cull mask in a single transfer.
+        got = node.fetch(counts + pending)
+        pending = []
+        n_cells, n, ne = (int(v) for v in got[:3])
+        if mc_variant == "lewiner":
+            confl = int(got[3])
+        per_tile, skip = got[-2], got[-1]
+    bar.update(num_batches * 0.8)
+
+    routed = (memo is None and speculate
+              and skip.mean() >= AUTO_TILES_THRESHOLD)
+    if memo is None and not routed:  # a routed run is never memoized
+        ckpt.memo_put(_COUNTS_MEMO, ckey, (n_cells, n, ne, confl))
+
+    if routed:
+        # The cull removed most of the volume: discard the dense result
+        # (device time only).
+        indexed = None
+    elif n_cells == 0:
+        indexed = (
+            np.zeros((0, 3), dtype=np.float64),
+            np.zeros((0, 3), dtype=np.int32),
+        )
+    else:
+        cell_capacity = mc.round_capacity(n_cells)
+        capacity = mc.round_capacity(n)
+        edge_capacity = mc.round_capacity(ne)
+        # Packed wire format (8 B/vertex + 8 B/triangle) when float32.
+        packed = False
+        if dtype == torch.float32:
+            packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
+        with _phase("mc_emit", stats):
+            everts, faces = mc.gather_emit_indexed(
+                vol, case, active, emask, edge_capacity, capacity,
+                cell_capacity, packed=packed, variant=mc_variant,
+            )
+        with _phase("d2h", stats):
+            # One transfer: the mesh and, on a memoized run, the statistics.
+            got = node.fetch([everts[:, :ne], faces[:, :n]] + pending)
+            eh, fh = got[:2]
+            if pending:
+                per_tile, skip = got[2:]
+            if packed is not False:  # int32 bit patterns of uint32 words
+                eh, fh = eh.view(np.uint32), fh.view(np.uint32)
+        with _phase("decode", stats):
+            if packed is not False:
+                indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
+            else:
+                indexed = (eh.astype(np.float64).T, fh.T.astype(np.int32))
+    return indexed, per_tile, skip, confl
+
+
 def generate(
     sdf,
     step=None,
@@ -348,8 +450,17 @@ def generate(
     that persists the soup keyed on a fingerprint of the run configuration;
     a matching re-run resumes from it (see ``utils.checkpoint``).
 
-    Not ported yet, and raising ``NotImplementedError``: a cull that routes
-    to the tiled path, or ``sparse="tiles"`` (ROADMAP A11); ``mesh=`` (A14).
+    ``sparse=`` selects the cull: True (the default) evaluates the dense
+    grid behind a speculative probe cull and, when the cull removed at least
+    ``AUTO_TILES_THRESHOLD`` of the batches, discards that and evaluates
+    only the kept tiles; ``"tiles"`` goes to the tiles at once; False meshes
+    every batch densely.  An expression with gather-marked subtrees
+    (``core.hybrid``) goes to the tiles at once under True as well
+    (``LAST_STATS["gather_tiles"]``).
+
+    Not ported yet, and raising ``NotImplementedError``: ``mesh=``; and, on
+    the card only, ``sparse=False`` for an expression with gather-marked
+    subtrees (the dense eval kernel takes no field inputs yet).
     """
     start = time.time()
     dtype = resolve_dtype(dtype)
@@ -361,11 +472,9 @@ def generate(
         raise ValueError("output must be 'points' or 'mesh', got %r" % output)
     if output == "mesh" and checkpoint is not None:
         raise ValueError("output='mesh' does not support checkpoint=")
-    if sparse == "tiles":
-        raise NotImplementedError(
-            "sparse='tiles' is not ported yet (ROADMAP A11)"
-        )
-    if sparse not in (True, False):
+    if not isinstance(sparse, str) and sparse in (True, False):
+        sparse = bool(sparse)
+    elif sparse != "tiles":
         raise ValueError("sparse must be True, False or 'tiles'")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP A14)")
@@ -426,7 +535,7 @@ def generate(
             )
         return np.zeros((0, 3), dtype=np.float64)
 
-    variant_tag = (mc_variant,) if mc_variant != "default" else ()
+    variant_tag = _variant_tag(mc_variant)
     fp = None
     if checkpoint is not None:
         # batch_size changes the cull granularity (a different triangle set
@@ -443,112 +552,49 @@ def generate(
                       % (len(cached) // 3, checkpoint))
             return cached
 
-    # sparse=True runs speculatively: the cull test is dispatched but not
-    # fetched, the dense pipeline is dispatched behind it with the
-    # device-resident mask, and the mask comes back with the counts in one
-    # transfer.
-    speculate = sparse is True
-    sshape = (-(-len(X) // s), -(-len(Y) // s), -(-len(Z) // s))
-    if speculate:
-        with _phase("skip_dispatch", stats):
-            skip_dev, sshape = _skip_mask_device(sdf, X, Y, Z, s, dtype,
-                                                 device)
-        skip3d = skip_dev.reshape(sshape)
-    else:
-        skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
-
-    with _phase("eval_classify", stats):
-        vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
-                                                    device)
-    if mc_variant != "default":
-        # Extend kernel B1's 8-bit codes with the variant's saddle/interior
-        # bits (reusing them instead of re-deriving corner signs).
-        with _phase("classify_ext", stats):
-            case = mc33.classify_ext(vol, base_case=case)
-    bar.update(num_batches * 0.6)
-
-    cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
-    keep = _expand_tile_mask(~skip3d, s, cshape)
-    tshape = tuple(-(-c // s) for c in cshape)
-    with _phase("mc_count", stats):
-        ncells_dev, total, n_edges, per_tile_dev, active, emask = (
-            mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
+    def tiles_path(skip):
+        # Tiled sparse pipeline: evaluate only the tiles the probe cull
+        # kept; work scales with surface area instead of grid volume.
+        mkey = _fingerprint_or_none(
+            sdf, X, Y, Z,
+            ("tiles-counts", str(dtype), s, device.type) + variant_tag,
         )
-    confl = None
-    pending = [per_tile_dev, skip3d]  # statistics not fetched yet
-    counts = [ncells_dev, total, n_edges]
-    if mc_variant == "lewiner":
-        # Observability for majority-voted table entries; rides the counts
-        # transfer below.
-        counts.append(mc33.count_conflicted(case, keep))
-
-    # Counts are deterministic in (expression, grid, dtype, cull mode,
-    # variant, and the device type: sin and cos differ between the CPU and
-    # the card): a repeat generate() of an unchanged model reuses them,
-    # dispatches emit at once and lets the statistics ride the mesh
-    # transfer.  A non-speculative run reaches here only with the all-False
-    # mask of sparse=False, so the flag stands for the mask.
-    ckey = _fingerprint_or_none(
-        sdf, X, Y, Z,
-        ("counts", str(dtype), s, bool(speculate), device.type) + variant_tag,
-    )
-    memo = _COUNTS_MEMO.get(ckey) if ckey is not None else None
-    if memo is not None:
-        n_cells, n, ne, confl = memo
-        if n_cells == 0:
-            per_tile, skip = _fetch(pending)
-            pending = []
-    else:
-        # The one host sync before emit: every count, the per-tile counters
-        # and the cull mask in a single transfer.
-        got = _fetch(counts + pending)
-        pending = []
-        n_cells, n, ne = (int(v) for v in got[:3])
-        if mc_variant == "lewiner":
-            confl = int(got[3])
-        per_tile, skip = got[-2], got[-1]
-    bar.update(num_batches * 0.8)
-
-    if not pending and speculate and skip.mean() >= AUTO_TILES_THRESHOLD:
-        raise NotImplementedError(
-            "the probe cull removed %.0f%% of the batches, which routes to "
-            "the tiled sparse path (not ported yet: ROADMAP A11); pass "
-            "sparse=False to mesh densely" % (100 * skip.mean())
-        )
-    if memo is None:  # a routed run is never memoized
-        _memo_put(_COUNTS_MEMO, ckey, (n_cells, n, ne, confl))
-
-    if n_cells == 0:
-        indexed = (
-            np.zeros((0, 3), dtype=np.float64),
-            np.zeros((0, 3), dtype=np.int32),
-        )
-    else:
-        cell_capacity = mc.round_capacity(n_cells)
-        capacity = mc.round_capacity(n)
-        edge_capacity = mc.round_capacity(ne)
-        # Packed wire format (8 B/vertex + 8 B/triangle) when float32.
-        packed = False
-        if dtype == torch.float32:
-            packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
-        with _phase("mc_emit", stats):
-            everts, faces = mc.gather_emit_indexed(
-                vol, case, active, emask, edge_capacity, capacity,
-                cell_capacity, packed=packed, variant=mc_variant,
+        with _phase("sparse_tiles", stats):
+            return sparse_mod.mesh_sparse_tiles(
+                sdf, X, Y, Z, skip, s, dtype, device, memo_key=mkey,
+                variant=mc_variant, stats=stats,
             )
-        with _phase("d2h", stats):
-            # One transfer: the mesh and, on a memoized run, the statistics.
-            got = _fetch([everts[:, :ne], faces[:, :n]] + pending)
-            eh, fh = got[:2]
-            if pending:
-                per_tile, skip = got[2:]
-            if packed is not False:  # int32 bit patterns of uint32 words
-                eh, fh = eh.view(np.uint32), fh.view(np.uint32)
-        with _phase("decode", stats):
-            if packed is not False:
-                indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
-            else:
-                indexed = (eh.astype(np.float64).T, fh.T.astype(np.int32))
+
+    if sparse is True and hybrid.count_gathers(sdf):
+        # The dense eval kernel takes no field inputs yet, the per-tile one
+        # does: a gather-bearing expression goes to the tiles at once, on
+        # the card and (so that both give one mesh) on the CPU.
+        sparse = "tiles"
+        stats["gather_tiles"] = True
+
+    # mc33_conflicted_cells is counted by the dense pipeline only: a run
+    # that goes to the tiles at once leaves the key out of LAST_STATS.
+    confl = None
+    if sparse == "tiles":
+        # Not speculative: the tile list is made on the host, so the cull
+        # mask is a host evaluation (memoized per expression and grid).
+        with _phase("skip_mask", stats):
+            skey = _fingerprint_or_none(sdf, X, Y, Z, ("skip", str(dtype), s))
+            skip = _SKIP_MEMO.get(skey) if skey is not None else None
+            if skip is None:
+                skip = _skip_mask(sdf, X, Y, Z, s, dtype)
+                ckpt.memo_put(_SKIP_MEMO, skey, skip)
+        bar.update(num_batches * 0.1)
+        indexed, per_tile = tiles_path(skip)
+        bar.update(num_batches * 0.8)
+    else:
+        indexed, per_tile, skip, confl = _dense_path(
+            sdf, X, Y, Z, s, dtype, device, mc_variant, sparse is True, stats,
+            bar, num_batches,
+        )
+        if indexed is None:  # the cull routed the run to the tiles
+            stats["auto_tiles"] = round(float(skip.mean()), 4)
+            indexed, per_tile = tiles_path(skip)
 
     scale = np.array([dx, dy, dz])
     offset = np.array([X[0], Y[0], Z[0]])

@@ -1,5 +1,5 @@
-"""Fused dense eval + classify (counterpart of ``sdf_tpu.core.pallas_eval``
-for the dense grid).
+"""Fused eval + classify (counterpart of ``sdf_tpu.core.pallas_eval``): the
+dense grid, and the active tiles of the tiled sparse path.
 
 ``eval_and_classify`` evaluates an SDF expression over the grid
 ``X x Y x Z`` and returns the volume with each cell's 8-bit corner-sign
@@ -10,8 +10,19 @@ turns every torch function and Python operator into one C++ statement.
 On the CPU it runs the plain pair ``_eval_volume`` + ``mc._cell_cases``,
 which is also what ``chip_smoke.py`` holds the kernel against.
 
-Expressions whose ops have no C++ form (gathers: textures, mesh SDFs,
-polygons) raise ``NotImplementedError`` naming the op on the card.
+``eval_tiles_and_classify_batched`` (kernel B6) and
+``eval_tiles_and_classify`` (kernel B7) do the same for a list of tiles,
+each a ``(tile+1)^3`` sample cube: B6 on the unpadded axes with indices
+clamped to the grid, for expressions the body can hold whole; B7 on axes
+padded by one tile, with the fields of gather-bearing subtrees computed
+ahead by ``core.hybrid`` and read by the body.  Both are instantiations of
+the kernel template ``csrc/eval_tiles.cu`` and share B1's per-point body
+(``csrc/sdf_point.cuh``).  Their plain pair is ``_eval_tiles`` +
+``mc._cell_cases``.
+
+Ops with no C++ form raise ``NotImplementedError`` naming the op on the
+card; so does a gather-marked subtree on the dense grid (kernel B1 takes
+no field inputs yet).
 """
 
 from __future__ import annotations
@@ -24,11 +35,14 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import hybrid
 from .mc import _cell_cases
 from .node import Points, cast, tree_leaves, tree_map, upload
 
 _TARGET_CHUNK_POINTS = 2**22
 _BODY_MARK = "//@SDF_BODY@"
+_POINT_INCLUDE = '#include "sdf_point.cuh"'
+MAX_FIELDS = 32  # csrc/sdf_point.cuh MAX_FIELDS
 
 
 # --- the recorder -------------------------------------------------------------
@@ -278,20 +292,51 @@ def _bind(sdf, em):
     return tree_map(leaf, sdf)
 
 
-def kernel_source(sdf):
-    """The CUDA source of kernel B1 for ``sdf``'s structure: the template
-    ``csrc/eval_classify.cu`` with the recorded per-point body inserted."""
+def _source(template, sdf, nf=0):
+    """The kernel source ``template`` for ``sdf``'s structure: the shared
+    per-point piece ``csrc/sdf_point.cuh`` spliced in at its include line,
+    with the recorded body inserted.  ``nf`` is the number of field inputs
+    the placeholders of ``sdf`` (a ``hybrid.to_kernel_tree``) read."""
     em = _Emitter()
     node = _bind(sdf, em)
     p = Points(*[Rec(em, n) for n in ("x", "y", "z")])
-    d = node.fn(node.params, p)
+    read = lambda k: Rec(em, em.var("f", "F.p[%d][fi]" % k))
+    with hybrid.kernel_fields(read) as fields:
+        d = node.fn(node.params, p)
+    if fields.taken != nf:
+        raise ValueError(
+            "the expression reads %d field inputs, %d were recorded"
+            % (fields.taken, nf)
+        )
     if isinstance(d, numbers.Number):
         d = Rec(em, _lit(d))
     if not isinstance(d, Rec) or d.shape != () or d.kind != "f":
         raise NotImplementedError("expression did not record to one value")
     body = "\n".join(em.lines + ["  return %s;" % d.expr[()]])
-    template = _build.source("eval_classify.cu")
-    return template.replace(_BODY_MARK, body)
+    point = _build.source("sdf_point.cuh").replace(_BODY_MARK, body)
+    return _build.source(template).replace(_POINT_INCLUDE, point)
+
+
+def kernel_source(sdf):
+    """The CUDA source of kernel B1 for ``sdf``'s structure."""
+    if hybrid.count_gathers(sdf):
+        raise NotImplementedError(
+            "the dense eval kernel takes no field inputs yet: a "
+            "gather-marked subtree meshes on the card through the tiles "
+            "(sparse=True or sparse='tiles'), not with sparse=False"
+        )
+    return _source("eval_classify.cu", sdf)
+
+
+def tile_kernel_source(sdf, nf=0):
+    """The CUDA source of kernels B6 and B7 for ``sdf``'s structure, with
+    ``nf`` field inputs (``sdf`` is then a ``hybrid.to_kernel_tree``)."""
+    if nf > MAX_FIELDS:
+        raise ValueError(
+            "the per-tile kernel takes at most %d field inputs, the "
+            "expression records %d" % (MAX_FIELDS, nf)
+        )
+    return _source("eval_tiles.cu", sdf, nf)
 
 
 def _flat_params(sdf, dtype, device):
@@ -377,3 +422,137 @@ def eval_and_classify(sdf, X, Y, Z, dtype, device):
 
 eval_and_classify.launches = 0
 
+
+
+# --- the tiled sparse path: kernels B6 and B7 ----------------------------------
+
+
+def _eval_tiles(sdf, X, Y, Z, tiles, tile, dtype, chunk=128, clamp=True,
+                fields=()):
+    """Plain version of kernels B6 and B7: the ``(ntc, TS, TS, TS)`` tile
+    volumes of the uncast expression ``sdf`` with the torch ops of
+    ``_eval_volume``, ``chunk`` tiles at a time.
+
+    ``tiles`` is an ``(ntc, 3)`` int32 tensor of tile indices on the device
+    to evaluate on (padded rows repeat tile 0 and are masked downstream).
+    With ``clamp`` the sample indices ``t * tile + [0, tile]`` are clipped
+    to the grid (the repeated boundary samples belong to cells masked as
+    out of grid); without it the caller has padded the host axes X/Y/Z by
+    ``tile`` samples.  ``fields`` are the tensors that the placeholders of
+    a ``hybrid.to_kernel_tree`` read, each ``(ntc, TS, TS, TS)``."""
+    device = tiles.device
+    Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
+    sdf_c = cast(sdf, dtype, device)
+    ntc, TS = tiles.shape[0], tile + 1
+    ar = torch.arange(TS, device=device)
+    vols = torch.empty((ntc, TS, TS, TS), dtype=dtype, device=device)
+    for i in range(0, ntc, max(1, chunk)):
+        t = tiles[i: i + chunk].to(torch.int64)
+
+        def window(axis, col):
+            idx = t[:, col: col + 1] * tile + ar
+            if clamp:
+                idx = idx.clamp(0, axis.numel() - 1)
+            return axis[idx]  # (chunk, TS)
+
+        p = Points(window(Xt, 0)[:, :, None, None],
+                   window(Yt, 1)[:, None, :, None],
+                   window(Zt, 2)[:, None, None, :])
+        with hybrid.kernel_fields(lambda k: fields[k][i: i + chunk]):
+            d = sdf_c(p)
+        vols[i: i + chunk] = torch.as_tensor(d).broadcast_to(
+            (len(t), TS, TS, TS))
+    return vols
+
+
+def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, clamp, fields, counter):
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError("eval_tiles: dtype must be float32 or float64")
+    _build.require_cuda(tiles, "eval_tiles")
+    ntc, TS = tiles.shape[0], tile + 1
+    vols = torch.empty((ntc, TS, TS, TS), dtype=dtype, device=tiles.device)
+    case = torch.empty((ntc, tile, tile, tile), dtype=torch.int32,
+                       device=tiles.device)
+    for f in fields:
+        _build.require_cuda(f, "eval_tiles field")
+        if f.shape != vols.shape or f.dtype != dtype or f.device != tiles.device:
+            raise ValueError(
+                "eval_tiles: a field must be %s of shape %s on the tiles' "
+                "device" % (dtype, tuple(vols.shape)))
+    if ntc == 0:
+        return vols, case
+    src = tile_kernel_source(sdf, len(fields))
+    lib = _build.load("eval_tiles", src)
+    name = "sdf_eval_tiles_%s%s" % (
+        "" if clamp else "fields_", "f32" if dtype == torch.float32 else "f64")
+    fn = getattr(lib, name)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i, i, i, i, vp, i, vp,
+                   vp, vp]
+    fn.restype = ctypes.c_int
+    Xt, Yt, Zt = _axes(X, Y, Z, dtype, tiles.device)
+    P = _flat_params(sdf, dtype, tiles.device)
+    ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
+    _build.check(
+        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), P.data_ptr(),
+           tiles.data_ptr(), ntc, len(X), len(Y), len(Z), tile, ptrs,
+           len(fields), vols.data_ptr(), case.data_ptr(),
+           _build.stream_ptr(tiles.device)),
+        "eval_tiles",
+    )
+    counter.launches += 1
+    return vols, case
+
+
+def _check_tiles(tiles, tile, what):
+    if (tiles.dtype != torch.int32 or tiles.dim() != 2 or tiles.shape[1] != 3
+            or tile < 1):
+        raise ValueError("%s: tiles must be (ntc, 3) int32, tile >= 1" % what)
+    if tiles.device.type not in ("cpu", "cuda"):
+        raise ValueError("%s: unsupported device %s" % (what, tiles.device))
+
+
+def eval_tiles_and_classify_batched(sdf, X, Y, Z, tiles, tile, dtype):
+    """Evaluate + classify the tiles ``tiles`` ((ntc, 3) int32 tensor; its
+    device is where the work runs) of the grid ``X x Y x Z`` (host float64
+    axis coordinates, UNPADDED: sample indices clamp to the grid) for the
+    uncast gather-free expression ``sdf`` in ``dtype``.  Returns ``(vols
+    (ntc, TS, TS, TS), case (ntc, tile, tile, tile) int32)``: kernel B6 on
+    CUDA, the plain pair on the CPU."""
+    _check_tiles(tiles, tile, "eval_tiles_and_classify_batched")
+    if hybrid.count_gathers(sdf):
+        raise ValueError(
+            "eval_tiles_and_classify_batched: the expression has "
+            "gather-marked subtrees; use eval_tiles_and_classify")
+    if tiles.device.type == "cpu":
+        vols = _eval_tiles(sdf, X, Y, Z, tiles, tile, dtype)
+        return vols, _cell_cases(vols)
+    return _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, True, (),
+                         eval_tiles_and_classify_batched)
+
+
+eval_tiles_and_classify_batched.launches = 0
+
+
+def eval_tiles_and_classify(sdf, X, Y, Z, tiles, tile, dtype):
+    """The contract of ``eval_tiles_and_classify_batched`` on axes PADDED
+    by the caller with ``tile`` copies of their last coordinate (no clamp),
+    for any expression: the fields of its gather-marked subtrees are
+    computed ahead with torch ops on the tiles' windows
+    (``hybrid.record_tiles``) and read by the kernel.  Kernel B7 on CUDA,
+    the plain pair on the CPU."""
+    _check_tiles(tiles, tile, "eval_tiles_and_classify")
+    fields, tree = (), sdf
+    if hybrid.count_gathers(sdf):
+        axes = _axes(X, Y, Z, dtype, tiles.device)
+        fields = hybrid.record_tiles(sdf, *axes, tiles, tile)
+        tree = hybrid.to_kernel_tree(sdf)
+    if tiles.device.type == "cpu":
+        vols = _eval_tiles(tree, X, Y, Z, tiles, tile, dtype, clamp=False,
+                           fields=fields)
+        return vols, _cell_cases(vols)
+    return _launch_tiles(tree, X, Y, Z, tiles, tile, dtype, False, fields,
+                         eval_tiles_and_classify)
+
+
+eval_tiles_and_classify.launches = 0

@@ -151,12 +151,14 @@ ntri_of.launches = 0
 
 
 def _cell_cases(volume, level=0.0):
-    """Case index per cell: bit c set iff corner c is inside (< level)."""
-    nx, ny, nz = volume.shape
-    case = torch.zeros((nx - 1, ny - 1, nz - 1), dtype=torch.int32,
-                       device=volume.device)
+    """Case index per cell: bit c set iff corner c is inside (< level).
+    ``volume`` is (..., nx, ny, nz): leading dims are a batch (of tiles)."""
+    nx, ny, nz = volume.shape[-3:]
+    case = torch.zeros(tuple(volume.shape[:-3]) + (nx - 1, ny - 1, nz - 1),
+                       dtype=torch.int32, device=volume.device)
     for c, (ox, oy, oz) in enumerate(CORNER_OFFSETS.tolist()):
-        corner = volume[ox: nx - 1 + ox, oy: ny - 1 + oy, oz: nz - 1 + oz]
+        corner = volume[..., ox: nx - 1 + ox, oy: ny - 1 + oy,
+                        oz: nz - 1 + oz]
         case |= (corner < level).to(torch.int32) << c
     return case
 
@@ -202,6 +204,26 @@ def _edge_gid(e, cx, cy, cz, ny, nz, Sx, Sy):
     mz = torch.where(axis == 2, nz - 1, nz)
     base = torch.where(axis == 0, 0, torch.where(axis == 1, Sx, Sx + Sy))
     return base + (x * my + y) * mz + z
+
+
+def _gid_pack(strides, bases, variant="default"):
+    """Per (case, slot): edge-id coefficients for the three vertices, as
+    one (ncase * max_tris, 9) int64 numpy table.
+
+    A vertex's edge id is affine in its cell coordinates: ``gid = cx * sx +
+    cy * sy + cz + K``, where (sx, sy, K) depend only on the edge's axis
+    and origin-corner offset.  ``strides[a] = (sx, sy)`` and ``bases[a]``
+    give each axis' edge-grid layout.  Row layout: ``[sx0 sy0 K0 sx1 sy1 K1
+    sx2 sy2 K2]``.  The tiled path uses it with tile-local strides."""
+    tab = get_tables(variant)
+    strides = np.asarray(strides, np.int64)
+    bases = np.asarray(bases, np.int64)
+    ax = _EDGE_AXIS[tab.tf3]  # (ncase, max_tris, 3)
+    o = _EDGE_ORIG[tab.tf3]  # (ncase, max_tris, 3, 3)
+    sx = strides[ax, 0]
+    sy = strides[ax, 1]
+    k = bases[ax] + o[..., 0] * sx + o[..., 1] * sy + o[..., 2]
+    return np.stack([sx, sy, k], axis=-1).reshape(tab.ncase * tab.max_tris, 9)
 
 
 def _edge_mask(volume, active):
@@ -443,16 +465,20 @@ def emit_indexed_packed(volume, emask, cell_state, edge_capacity, capacity,
         variant=variant,
     )
     epack = torch.stack([eidx.to(torch.int32), t.view(torch.int32)], dim=0)
+    return epack, pack_faces_words(faces, pack_faces)
+
+
+def pack_faces_words(faces, pack_faces):
+    """The face wire format of ``(3, capacity)`` vertex ranks: two words
+    holding three 21-bit ranks when ``pack_faces``, else the int32 ranks."""
+    if not pack_faces:
+        return faces.to(torch.int32)
     f = faces.to(torch.int64)
-    if pack_faces:
-        B = FACE_PACK_BITS
-        lo_mask = (1 << (32 - B)) - 1  # low 11 bits of f1
-        w0 = (f[0] | ((f[1] & lo_mask) << B)) & 0xFFFFFFFF
-        w1 = ((f[1] >> (32 - B)) | (f[2] << (2 * B - 32))) & 0xFFFFFFFF
-        fpack = compact._to_i32(torch.stack([w0, w1], dim=0))
-    else:
-        fpack = faces.to(torch.int32)
-    return epack, fpack
+    B = FACE_PACK_BITS
+    lo_mask = (1 << (32 - B)) - 1  # low 11 bits of f1
+    w0 = (f[0] | ((f[1] & lo_mask) << B)) & 0xFFFFFFFF
+    w1 = ((f[1] >> (32 - B)) | (f[2] << (2 * B - 32))) & 0xFFFFFFFF
+    return compact._to_i32(torch.stack([w0, w1], dim=0))
 
 
 def unpack_indexed(epack, fpack, grid_shape, dtype=np.float32):

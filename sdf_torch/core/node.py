@@ -203,6 +203,27 @@ def upload(arrays, dtype, device):
     return out
 
 
+def fetch(tensors):
+    """Tensors of any dtypes on one device -> numpy arrays of the same
+    shapes, in ONE device-to-host transfer (each ``.cpu()`` waits for the
+    card once): the tensors travel as bytes, each padded to 8."""
+    parts, metas = [], []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = (-b.numel()) % 8
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        parts.append(b)
+        metas.append((b.numel(), t.numel() * t.element_size(), t))
+    flat = torch.cat(parts).cpu().numpy()
+    out, at = [], 0
+    for padded, nbytes, t in metas:
+        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at: at + nbytes].view(dt).reshape(tuple(t.shape)))
+        at += padded
+    return out
+
+
 def cast(node, dtype, device):
     """Copy of an SDF expression with every numeric leaf a ``dtype`` tensor
     on ``device`` (host leaves uploaded together, see ``upload``)."""

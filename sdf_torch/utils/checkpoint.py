@@ -183,6 +183,21 @@ def fingerprint(sdf, X, Y, Z, sparse):
     return h.hexdigest()
 
 
+MEMO_MAX = 256
+
+
+def memo_put(memo, key, value):
+    """Store ``value`` under a fingerprint-derived ``key`` in one of the
+    engine's memo dicts; a ``None`` key (an expression that cannot be
+    hashed) stores nothing, and a memo past ``MEMO_MAX`` entries is
+    emptied first."""
+    if key is None:
+        return
+    if len(memo) > MEMO_MAX:
+        memo.clear()
+    memo[key] = value
+
+
 def structure_key(sdf, *extra):
     """Fingerprint of an expression's *structure* (statics + tree shape +
     leaf shapes, no leaf values).  Rebuilding the same model yields fresh

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 import sdf_torch as sp
-from sdf_torch.core import compact, engine, eval_classify, mc, mc33
+from sdf_torch.core import compact, engine, eval_classify, hybrid, mc, mc33
+from sdf_torch.models import zoo
 
 import torch_helpers as th
 
@@ -46,6 +47,8 @@ def cuda():
     exprs.append(sp.sphere(0.6).union(sp.box(0.8), k=0.2))
     _build.build_many(
         [("eval_classify", eval_classify.kernel_source(f)) for f in exprs]
+        + [("eval_tiles", eval_classify.tile_kernel_source(f))
+           for f in (th.example(sp), zoo.blobby())]
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
            ("classify_ext", _build.source("classify_ext.cu"))]
@@ -261,3 +264,197 @@ def test_default_generate_launches_every_kernel(cuda):
     before = [w.launches for w in wrappers]
     pts = th.example(sp).generate(samples=2**15, verbose=False)
     assert len(pts) and all(w.launches > b for w, b in zip(wrappers, before))
+
+
+# --- the tiled sparse path: kernels B6 and B7 ----------------------------------
+
+
+def _padded(A, tile):
+    return np.concatenate([A, np.full(tile, A[-1])])
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eval_tiles_kernels(cuda, dtype, tile):
+    """Kernel B6 bit-equal to its plain version on a random half of the
+    tiles of an odd-sized grid (edge tiles clamp; padded rows repeat tile
+    0), and kernel B7 without fields equal to B6."""
+    X = np.linspace(-1.1, 1.1, 37)
+    Y = np.linspace(-1.0, 1.2, 41)
+    Z = np.linspace(-1.2, 1.0, 70)
+    t = th.grid_tiles((37, 41, 70), tile, np.random.default_rng(tile))
+    t = np.concatenate([t, np.zeros((3, 3), np.int32)])
+    tiles = torch.as_tensor(t, device=cuda)
+    for f in (th.example(sp), zoo.blobby()):
+        b6, b7 = (eval_classify.eval_tiles_and_classify_batched,
+                  eval_classify.eval_tiles_and_classify)
+        before = b6.launches, b7.launches
+        vk, ck = b6(f, X, Y, Z, tiles, tile, dtype)
+        v7, c7 = b7(f, _padded(X, tile), _padded(Y, tile), _padded(Z, tile),
+                    tiles, tile, dtype)
+        assert (b6.launches, b7.launches) == (before[0] + 1, before[1] + 1)
+        vp = eval_classify._eval_tiles(f, X, Y, Z, tiles, tile, dtype)
+        assert _same_bits(vk, vp) and torch.equal(ck, mc._cell_cases(vp))
+        assert _same_bits(v7, vk) and torch.equal(c7, ck)
+
+
+@pytest.mark.parametrize("name", ["rotated", "circular"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eval_tiles_kernel_with_fields(cuda, dtype, name):
+    """Kernel B7 with recorded fields bit-equal to its plain version, and
+    to the expression evaluated whole with torch ops on the card."""
+    f = th.gather_models(sp)[name]
+    tile = 8
+    X = np.linspace(-1.3, 1.3, 45)
+    Xp = _padded(X, tile)
+    tiles = torch.as_tensor(th.grid_tiles((45,) * 3, tile,
+                                          np.random.default_rng(5)), device=cuda)
+    before = eval_classify.eval_tiles_and_classify.launches
+    vk, ck = eval_classify.eval_tiles_and_classify(f, Xp, Xp, Xp, tiles, tile,
+                                                   dtype)
+    assert eval_classify.eval_tiles_and_classify.launches == before + 1
+    axes = eval_classify._axes(Xp, Xp, Xp, dtype, cuda)
+    fields = hybrid.record_tiles(f, *axes, tiles, tile)
+    assert len(fields) == (2 if name == "circular" else 1)
+    vp = eval_classify._eval_tiles(hybrid.to_kernel_tree(f), Xp, Xp, Xp, tiles,
+                                   tile, dtype, clamp=False, fields=fields)
+    whole = eval_classify._eval_tiles(f, Xp, Xp, Xp, tiles, tile, dtype,
+                                      clamp=False)
+    assert _same_bits(vk, vp) and _same_bits(vk, whole)
+    assert torch.equal(ck, mc._cell_cases(vp))
+
+
+def test_empty_tile_list_launches_nothing(cuda):
+    X = np.linspace(-1, 1, 20)
+    tiles = torch.zeros((0, 3), dtype=torch.int32, device=cuda)
+    for w in (eval_classify.eval_tiles_and_classify_batched,
+              eval_classify.eval_tiles_and_classify):
+        before = w.launches
+        vols, case = w(sp.sphere(1), X, X, X, tiles, 8, torch.float32)
+        assert vols.shape == (0, 9, 9, 9) and case.shape == (0, 8, 8, 8)
+        assert w.launches == before
+
+
+def _clear_memos():
+    from sdf_torch.core import sparse
+
+    for memo in (engine._COUNTS_MEMO, engine._SKIP_MEMO, sparse._COUNTS_MEMO):
+        memo.clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_explicit_tiles_sync_twice_then_once(cuda, dtype):
+    """sparse='tiles' waits for the card for the tiles counts and for the
+    mesh (the cull mask is a host evaluation); a repeat finds the counts
+    memoized and waits once."""
+    kw = dict(samples=2**15, batch_size=8, sparse="tiles", verbose=False,
+              dtype=dtype)
+    first = th.example(sp).generate(**kw)  # warm-up: builds, table uploads
+    _clear_memos()
+    msgs = _count_syncs(lambda: th.example(sp).generate(**kw))
+    assert len(msgs) == 2, msgs
+    out = []
+    msgs = _count_syncs(lambda: out.append(th.example(sp).generate(**kw)))
+    assert len(msgs) == 1, msgs
+    np.testing.assert_array_equal(out[0], first)
+    np.testing.assert_array_equal(
+        first, th.example(sp).generate(device="cpu", **kw))
+
+
+def test_routed_run_syncs_three_times_then_twice(cuda):
+    """A sparse=True run that the cull routes to the tiles: the dense counts
+    fetch, the tiles counts fetch, the mesh; on a repeat the tiles counts
+    are memoized (the dense counts of a routed run never are)."""
+    kw = dict(bounds=((-6,) * 3, (6,) * 3), step=0.12, batch_size=16,
+              verbose=False)
+    first = sp.sphere(1).generate(**kw)
+    assert engine.LAST_STATS["auto_tiles"] >= engine.AUTO_TILES_THRESHOLD
+    _clear_memos()
+    msgs = _count_syncs(lambda: sp.sphere(1).generate(**kw))
+    assert len(msgs) == 3, msgs
+    assert not engine._COUNTS_MEMO
+    out = []
+    msgs = _count_syncs(lambda: out.append(sp.sphere(1).generate(**kw)))
+    assert len(msgs) == 2, msgs
+    np.testing.assert_array_equal(out[0], first)
+
+
+def test_tiles_path_launches_its_kernels(cuda):
+    b6 = eval_classify.eval_tiles_and_classify_batched
+    b7 = eval_classify.eval_tiles_and_classify
+    wrappers = [b6, mc33.classify_ext, mc.ntri_of, compact.indices_of,
+                compact.indices_and_ranktable_of]
+    before = [w.launches for w in wrappers] + [
+        b7.launches, eval_classify.eval_and_classify.launches]
+    kw = dict(samples=2**15, batch_size=8, sparse="tiles", verbose=False)
+    pts = th.example(sp).generate(**kw)
+    after = [w.launches for w in wrappers]
+    assert len(pts) and all(a > b for a, b in zip(after, before))
+    assert [b7.launches, eval_classify.eval_and_classify.launches] == before[5:]
+    g = th.gather_models(sp)["rotated"]
+    kw["bounds"] = ((-1.3,) * 3, (1.3,) * 3)
+    got = g.generate(**kw)
+    assert b7.launches == before[5] + 1 and b6.launches == after[0]
+    np.testing.assert_array_equal(got, g.generate(device="cpu", **kw))
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_shapes_through_the_other_kernels(cuda, dtype, tile):
+    """Kernels B2 to B5 on what the tiled path gives them: the batched tile
+    volumes with kernel B6's case codes as base_case, the tile case grid,
+    the tile-cell mask and the per-tile [x|y|z] edge mask; each equal to its
+    plain version."""
+    from sdf_torch.core import sparse
+
+    f = zoo.blobby()
+    (x0, y0, z0), (x1, y1, z1) = engine._estimate_bounds(f, torch.float32)
+    X, Y, Z = (np.linspace(a, b, 75) for a, b in ((x0, x1), (y0, y1), (z0, z1)))
+    skip = engine._skip_mask(f, X, Y, Z, tile, torch.float32)
+    active = np.argwhere(~skip)
+    nt, ntc = len(active), mc.round_capacity(len(active))
+    t = np.zeros((ntc, 3), np.int32)
+    t[:nt] = active
+    tiles = torch.as_tensor(t, device=cuda)
+    live = torch.arange(ntc, device=cuda) < nt
+    vols, case = eval_classify.eval_tiles_and_classify_batched(
+        f, X, Y, Z, tiles, tile, dtype)
+    ext = mc33.classify_ext(vols, base_case=case)
+    assert torch.equal(ext, mc33._classify_ext_plain(vols, base_case=case))
+    assert torch.equal(ext, mc33.classify_ext(vols))
+    table = mc.get_tables("lewiner").on(cuda, "ntri")
+    assert torch.equal(mc.ntri_of(ext, "lewiner"), mc._ntri_plain(ext, table))
+    _, _, ncell, _, nedge, emask = sparse._count_tiles(
+        vols, tiles, live, (74, 74, 74), tile, ext, "lewiner")
+    valid = sparse._cell_valid(tiles, live, (74, 74, 74), tile)
+    cells = ((mc.ntri_of(ext, "lewiner") * valid) > 0).reshape(-1)
+    assert int(cells.sum()) == int(ncell) > 0 and int(nedge) > 0
+    cap = mc.round_capacity(int(ncell))
+    ik, nk = compact.indices_of(cells, cap)
+    ip, n_p = compact._indices_of_plain(cells, cap)
+    assert torch.equal(ik, ip) and int(nk) == int(n_p)
+    m = emask.reshape(-1)
+    cap = mc.round_capacity(int(nedge))
+    got = compact.indices_and_ranktable_of(m, cap)
+    want = compact._ranktable_plain(m, cap)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_gather_expression_at_the_defaults_runs_the_per_tile_kernel(cuda):
+    """generate() at its defaults on a gather-bearing expression goes to the
+    tiles (kernel B7) and equals the device='cpu' run; sparse=False, the one
+    cull mode that needs the dense kernel, says what is missing."""
+    b7 = eval_classify.eval_tiles_and_classify
+    # the rotated model: circular_array takes sin and cos on the device,
+    # which differ from the CPU's by an ulp and can flip a table index
+    g = th.gather_models(sp)["rotated"]
+    kw = dict(bounds=((-1.3,) * 3, (1.3,) * 3), samples=2**15, batch_size=8,
+              verbose=False)
+    before = b7.launches, eval_classify.eval_and_classify.launches
+    got = g.generate(**kw)
+    assert engine.LAST_STATS["gather_tiles"] is True
+    assert (b7.launches, eval_classify.eval_and_classify.launches) == (
+        before[0] + 1, before[1])
+    np.testing.assert_array_equal(got, g.generate(device="cpu", **kw))
+    with pytest.raises(NotImplementedError, match="field inputs"):
+        g.generate(sparse=False, **kw)

@@ -34,6 +34,8 @@ from sdf_tpu.core import engine as jengine
 from sdf_tpu.io import stl as jstl
 from sdf_tpu.parallel import grid as pgrid
 from sdf_torch.core import engine as tengine
+from sdf_torch.core import node as tnode
+from sdf_torch.utils import checkpoint as tckpt
 
 import torch_helpers as th
 
@@ -54,6 +56,7 @@ def _fresh_memos():
     """Each test starts with the engine's memos empty."""
     tengine._BOUNDS_MEMO.clear()
     tengine._COUNTS_MEMO.clear()
+    tengine._SKIP_MEMO.clear()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -184,20 +187,51 @@ def test_verbose_format_and_stats():
 
 @pytest.mark.parametrize("variant", ["lewiner", "fast"])
 @pytest.mark.parametrize(
-    "kw,item", [({"sparse": "tiles"}, "A11"), ({"mesh": object()}, "A14")],
+    "kw,item",
+    [({"sparse": "tiles", "mesh": object()}, "A14"), ({"mesh": object()}, "A14")],
     ids=["tiles", "mesh"],
 )
 def test_unported_branches_raise(kw, item, variant):
+    """``mesh=`` is the one branch that still raises, with the tiles too
+    (the sharded tile list)."""
     with pytest.raises(NotImplementedError, match=item):
         th.example(sp).generate(samples=2**12, verbose=False, device="cpu",
                                 mc_variant=variant, **kw)
 
 
 def test_cull_routing_to_tiles_raises():
+    """A cull that routes to the tiles raises nothing any more (the test
+    keeps the name it had while that branch was not ported): the run takes
+    the tiled path and meshes what sparse=False meshes."""
     f = sp.sphere(0.1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        f.generate(bounds=((-1,) * 3, (1,) * 3), samples=2**15, batch_size=4,
-                   verbose=False, mc_variant="fast", device="cpu")
+    kw = dict(bounds=((-1,) * 3, (1,) * 3), samples=2**15, batch_size=4,
+              verbose=False, mc_variant="fast", device="cpu")
+    got = f.generate(**kw)
+    assert tengine.LAST_STATS["auto_tiles"] >= tengine.AUTO_TILES_THRESHOLD
+    assert "sparse_tiles" in tengine.LAST_STATS
+    assert "mc33_conflicted_cells" not in tengine.LAST_STATS
+    want = f.generate(sparse=False, **kw)
+    assert len(got) and th.soup_hash(got) == th.soup_hash(want)
+
+
+@pytest.mark.parametrize("sparse", [None, "dense", 1.5, "Tiles"])
+def test_sparse_takes_true_false_or_tiles(sparse):
+    with pytest.raises(ValueError, match="sparse"):
+        th.example(sp).generate(samples=2**10, verbose=False, device="cpu",
+                                sparse=sparse)
+
+
+def test_routed_lewiner_run_keeps_the_dense_conflict_count():
+    """As in the JAX package: a routed sparse=True run has counted the
+    conflicted cells in its dense pass; sparse='tiles' leaves the key out."""
+    kw = dict(bounds=((-1,) * 3, (1,) * 3), samples=2**15, batch_size=4,
+              verbose=False, device="cpu")
+    sp.sphere(0.1).generate(**kw)
+    assert "auto_tiles" in tengine.LAST_STATS
+    assert tengine.LAST_STATS["mc33_conflicted_cells"] == 0
+    sp.sphere(0.1).generate(sparse="tiles", **kw)
+    assert "auto_tiles" not in tengine.LAST_STATS
+    assert "mc33_conflicted_cells" not in tengine.LAST_STATS
 
 
 def test_non_stl_save_raises(tmp_path):
@@ -329,7 +363,7 @@ def test_second_call_probes_nothing(monkeypatch, dtype):
     model probes no bounds, fetches once instead of twice, and returns a
     bit-equal soup with the same statistics."""
     probes = _count_calls(monkeypatch, tengine, "_estimate_bounds_host")
-    fetches = _count_calls(monkeypatch, tengine, "_fetch")
+    fetches = _count_calls(monkeypatch, tnode, "fetch")
     kw = dict(samples=2**13, verbose=False, dtype=dtype, device="cpu")
     first = th.example(sp).generate(**kw)
     stats = dict(tengine.LAST_STATS)
@@ -344,7 +378,7 @@ def test_second_call_probes_nothing(monkeypatch, dtype):
 
 def test_memos_miss_on_any_change(monkeypatch):
     probes = _count_calls(monkeypatch, tengine, "_estimate_bounds_host")
-    fetches = _count_calls(monkeypatch, tengine, "_fetch")
+    fetches = _count_calls(monkeypatch, tnode, "fetch")
     kw = dict(samples=2**12, verbose=False, device="cpu")
     f = lambda r=1.0, k=None: sp.sphere(r) & sp.box(1.5).k(k)
     f().generate(**kw)
@@ -377,10 +411,10 @@ def test_memoized_empty_mesh():
 
 
 def test_memos_are_bounded():
-    for i in range(tengine._MEMO_MAX + 5):
-        tengine._memo_put(tengine._BOUNDS_MEMO, ("k", i), i)
-    assert len(tengine._BOUNDS_MEMO) <= tengine._MEMO_MAX + 1
-    tengine._memo_put(tengine._BOUNDS_MEMO, None, 1)
+    for i in range(tckpt.MEMO_MAX + 5):
+        tckpt.memo_put(tengine._BOUNDS_MEMO, ("k", i), i)
+    assert len(tengine._BOUNDS_MEMO) <= tckpt.MEMO_MAX + 1
+    tckpt.memo_put(tengine._BOUNDS_MEMO, None, 1)
     assert None not in tengine._BOUNDS_MEMO
 
 
@@ -389,7 +423,7 @@ def test_fetch_is_one_transfer_of_mixed_dtypes():
           torch.tensor([[True, False, True]]),
           torch.arange(6, dtype=torch.float64).reshape(2, 3)[:, :2],
           torch.zeros((0, 3), dtype=torch.int64)]
-    out = tengine._fetch(ts)
+    out = tnode.fetch(ts)
     for t, a in zip(ts, out):
         assert a.shape == tuple(t.shape)
         np.testing.assert_array_equal(a, t.numpy())

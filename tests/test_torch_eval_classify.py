@@ -107,3 +107,51 @@ def test_unsupported_op_names_itself():
     g = sp.SDF3(fn, f.params)
     with pytest.raises(NotImplementedError, match="erf"):
         ec.kernel_source(g)
+
+
+def _point_body(src):
+    start = src.index("sdf_point(")
+    return src[start: src.index("\n}", start)]
+
+
+def test_the_three_eval_kernels_share_one_point_body():
+    """Kernels B1, B6 and B7 get the same generated ``sdf_point`` and the
+    same op helpers, spliced in from csrc/sdf_point.cuh."""
+    f = th.example(sp)
+    dense, tiles = ec.kernel_source(f), ec.tile_kernel_source(f)
+    assert _point_body(dense) == _point_body(tiles)
+    assert "//@SDF_BODY@" not in dense + tiles
+    for src in (dense, tiles):
+        assert src.count("op_min(float a, float b)") == 1
+        assert '#include "sdf_point.cuh"' not in src
+    assert "eval_classify_kernel" in dense and "eval_tiles_kernel" in tiles
+    assert "eval_tiles_kernel" not in dense
+
+
+def test_cell_cases_take_batch_dims():
+    rng = np.random.default_rng(1)
+    vols = torch.as_tensor(rng.normal(size=(5, 6, 7, 8)))
+    batch = tmc._cell_cases(vols)
+    assert batch.shape == (5, 5, 6, 7)
+    for i in range(5):
+        assert torch.equal(batch[i], tmc._cell_cases(vols[i]))
+
+
+@pytest.mark.parametrize("wrapper", ["eval_tiles_and_classify_batched",
+                                     "eval_tiles_and_classify"])
+def test_tile_wrappers_check_their_tile_list(wrapper):
+    fn = getattr(ec, wrapper)
+    X = np.linspace(-1, 1, 9)
+    f = sp.sphere(1)
+    for bad in (torch.zeros((2, 3), dtype=torch.int64),
+                torch.zeros((2, 2), dtype=torch.int32),
+                torch.zeros(6, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="tiles"):
+            fn(f, X, X, X, bad, 4, torch.float32)
+    with pytest.raises(ValueError, match="tile >= 1"):
+        fn(f, X, X, X, torch.zeros((2, 3), dtype=torch.int32), 0,
+           torch.float32)
+    vols, case = fn(f, X, X, X, torch.zeros((0, 3), dtype=torch.int32), 4,
+                    torch.float32)
+    assert vols.shape == (0, 5, 5, 5) and case.shape == (0, 4, 4, 4)
+    assert case.dtype == torch.int32

@@ -13,6 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_MODULES = [
     "sdf_torch._build",
     "sdf_torch.core.eval_classify",
+    "sdf_torch.core.hybrid",
+    "sdf_torch.core.sparse",
     "sdf_torch.core.mc",
     "sdf_torch.core.mc33",
     "sdf_torch.core.mc33_build",
@@ -32,6 +34,7 @@ def test_import_leaves_jax_out():
         "import sdf_torch.core.mc33, sdf_torch.core.mc33_build\n"
         "import sdf_torch.utils.checkpoint, sdf_torch.io.meshfmt\n"
         "import sdf_torch.models.zoo\n"
+        "import sdf_torch.core.sparse, sdf_torch.core.hybrid\n"
         "sdf_torch.core.mc.get_tables('lewiner')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'sdf_tpu'))]\n"
@@ -57,7 +60,8 @@ def test_sources_name_no_jax():
     names = {os.path.relpath(p, ROOT) for p in paths}
     assert {"chip_smoke.py", "sdf_torch/core/mc33.py",
             "sdf_torch/core/mc33_build.py", "sdf_torch/utils/checkpoint.py",
-            "sdf_torch/io/meshfmt.py", "sdf_torch/models/zoo.py"} <= names
+            "sdf_torch/io/meshfmt.py", "sdf_torch/models/zoo.py",
+            "sdf_torch/core/sparse.py", "sdf_torch/core/hybrid.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:
@@ -71,11 +75,32 @@ def test_kernel_sources_are_shipped_and_named():
     which TPU kernel it replaces."""
     csrc = os.path.join(ROOT, "sdf_torch", "csrc")
     for name in ("eval_classify.cu", "ntri.cu", "compact.cu",
-                 "classify_ext.cu"):
+                 "classify_ext.cu", "eval_tiles.cu"):
         with open(os.path.join(csrc, name)) as fp:
             text = fp.read()
         assert "Replaces: sdf_tpu/" in text, name
         assert "extern \"C\"" in text, name
+    # every file under csrc/ is one the wrappers build or splice, and the
+    # package data ships each of them (*.cu does not match the .cuh)
+    assert sorted(os.listdir(csrc)) == [
+        "classify_ext.cu", "compact.cu", "eval_classify.cu", "eval_tiles.cu",
+        "ntri.cu", "sdf_point.cuh"]
+    with open(os.path.join(ROOT, "pyproject.toml")) as fp:
+        shipped = fp.read()
+    assert '"csrc/*.cu"' in shipped and '"csrc/*.cuh"' in shipped
+    with open(os.path.join(csrc, "eval_tiles.cu")) as fp:
+        text = fp.read()
+    for entry in ("sdf_eval_tiles_f32", "sdf_eval_tiles_f64",
+                  "sdf_eval_tiles_fields_f32", "sdf_eval_tiles_fields_f64",
+                  "pallas_eval.py `_tile_kernel_batched`",
+                  "pallas_eval.py `_tile_kernel`"):
+        assert entry in text, entry
+    with open(os.path.join(csrc, "sdf_point.cuh")) as fp:
+        point = fp.read()
+    assert "//@SDF_BODY@" in point and "fast_math" not in point
+    for name in ("eval_classify.cu", "eval_tiles.cu"):
+        with open(os.path.join(csrc, name)) as fp:
+            assert fp.read().count('#include "sdf_point.cuh"') == 1, name
     with open(os.path.join(csrc, "classify_ext.cu")) as fp:
         text = fp.read()
     for entry in ("sdf_classify_ext_f32", "sdf_classify_ext_f64",
@@ -152,6 +177,46 @@ def test_wrappers_never_fall_back():
         eval_classify.eval_and_classify(
             __import__("sdf_torch").sphere(1), X, X, X, torch.float32, "meta"
         )
+    tiles = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    for wrapper in (eval_classify.eval_tiles_and_classify_batched,
+                    eval_classify.eval_tiles_and_classify):
+        with pytest.raises(ValueError, match="device"):
+            wrapper(__import__("sdf_torch").sphere(1), X, X, X, tiles, 2,
+                    torch.float32)
+
+
+def test_tile_wrappers_launch_on_cuda_tensors_only(monkeypatch):
+    """On the CPU the tile wrappers run the plain version; on any other
+    tensor they go to the launch (no try/except around it, no plain version
+    behind it): with the launch stubbed, a CUDA-typed call reaches the stub
+    and a CPU call does not."""
+    from sdf_torch.core import eval_classify
+
+    reached = []
+    monkeypatch.setattr(eval_classify, "_launch_tiles",
+                        lambda *a: reached.append(a[-1]) or (None, None))
+
+    class FakeCuda:
+        type = "cuda"
+
+    class FakeTiles:
+        dtype, shape, device = torch.int32, (2, 3), FakeCuda()
+
+        def dim(self):
+            return 2
+
+    f = __import__("sdf_torch").sphere(1)
+    X = np.linspace(-1, 1, 9)
+    b6 = eval_classify.eval_tiles_and_classify_batched
+    b7 = eval_classify.eval_tiles_and_classify
+    assert b6(f, X, X, X, FakeTiles(), 4, torch.float32) == (None, None)
+    assert b7(f, X, X, X, FakeTiles(), 4, torch.float32) == (None, None)
+    assert reached == [b6, b7]
+    cpu = torch.zeros((2, 3), dtype=torch.int32)
+    vols, case = b6(f, X, X, X, cpu, 4, torch.float32)
+    assert vols.shape == (2, 5, 5, 5) and reached == [b6, b7]
+    src = open(eval_classify.__file__).read()
+    assert "except" not in src
 
 
 def test_launch_counters_start_at_zero_on_cpu():
@@ -163,11 +228,14 @@ def test_launch_counters_start_at_zero_on_cpu():
 
     wrappers = [eval_classify.eval_and_classify, mc.ntri_of,
                 compact.indices_of, compact.indices_and_ranktable_of,
-                mc33.classify_ext, mc33.ext_from_bits]
+                mc33.classify_ext, mc33.ext_from_bits,
+                eval_classify.eval_tiles_and_classify_batched,
+                eval_classify.eval_tiles_and_classify]
     before = [w.launches for w in wrappers]
     for variant in ("fast", "lewiner"):
-        sp.sphere(1).generate(samples=2**12, verbose=False,
-                              mc_variant=variant, device="cpu")
+        for sparse in (True, "tiles"):
+            sp.sphere(1).generate(samples=2**12, verbose=False, sparse=sparse,
+                                  mc_variant=variant, device="cpu")
     z = torch.zeros(8, dtype=torch.int32)
     mc33.ext_from_bits(z, z)
     assert [w.launches for w in wrappers] == before

@@ -117,6 +117,55 @@ def op_cases():
     }
 
 
+def table_field(table, lo=-1.5, hi=1.5):
+    """A gather-marked test SDF of sdf_torch: the heightfield ``z -
+    table[i(x)]``, the table looked up by an index computed from ``x``
+    (nearest of ``len(table)`` knots over ``[lo, hi]``).  The generated
+    kernel body cannot hold the lookup, so ``core.hybrid`` computes its
+    field ahead of the per-tile kernel.  The result broadcasts over y."""
+    import torch
+
+    from sdf_torch.core import hybrid
+    from sdf_torch.core.node import SDF3, as_param
+
+    n = len(table)
+
+    @hybrid.mark_gather
+    def table_field_fn(q, p):
+        x, z = p[0], p[2]
+        i = torch.clamp(torch.round((x - lo) * ((n - 1) / (hi - lo))), 0, n - 1)
+        return z - q["table"][i.to(torch.int64)]
+
+    return SDF3(table_field_fn, {"table": as_param(table)})
+
+
+def gather_models(m):
+    """Gather-bearing sdf_torch expressions (``m`` is sdf_torch): the table
+    field under a rotation (its field is recorded at rotated points), and
+    under ``circular_array``, whose parent evaluates the child twice (two
+    fields, two reads)."""
+    table = 0.25 * np.cos(np.linspace(0.0, 9.0, 25))
+    return {
+        "rotated": m.sphere(1.2) & table_field(table).rotate(0.5, m.X),
+        "circular": m.sphere(1.2) & table_field(table).translate(
+            (0.3, 0.0, 0.0)).circular_array(3, 0.0),
+    }
+
+
+def grid_tiles(shape, tile, rng=None, keep=0.5):
+    """Tile indices of a grid of ``shape`` samples at ``tile`` cells per
+    tile: all of them, or a random ``keep`` share (always with the first
+    and the last, which clamps), as an (n, 3) int32 array in x-major order."""
+    nt = [-(-n // tile) for n in shape]
+    full = np.stack(np.meshgrid(*[np.arange(n) for n in nt], indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    if rng is not None:
+        pick = rng.random(len(full)) < keep
+        pick[0] = pick[-1] = True
+        full = full[pick]
+    return full.astype(np.int32)
+
+
 def soup_hash(pts):
     """Canonical triangle-soup sha256 (tests/test_topology_2p24.py)."""
     tris = np.asarray(pts, np.float64).round(9).reshape(-1, 9)
@@ -144,11 +193,17 @@ def _nanmax(a, b):
     return np.where(a != a, a, np.where(b != b, b, np.fmax(a, b)))
 
 
-def run_body(src, x, y, z, P):
+class _Fields:
+    def __init__(self, p):
+        self.p = p
+
+
+def run_body(src, x, y, z, P, fields=()):
     """Evaluate the ``sdf_point`` body of a generated kernel source with
     numpy, elementwise and in IEEE arithmetic, on broadcastable coordinate
     arrays ``x, y, z`` and the flat parameter array ``P`` (all one float
-    dtype).  The CUDA kernel itself only runs on the card; this checks on
+    dtype).  ``fields`` are the field inputs a placeholder statement reads
+    at the point's own index: arrays of the points' full broadcast shape.  The CUDA kernel itself only runs on the card; this checks on
     the CPU that the recorded statements compute what the expression's
     torch code computes."""
     dt = P.dtype.type
@@ -156,6 +211,7 @@ def run_body(src, x, y, z, P):
     body = src[src.index("{", start) + 1: src.index("\n}", start)]
     env = {
         "x": x, "y": y, "z": z, "P": P, "T": dt,
+        "F": _Fields(list(fields)), "fi": Ellipsis,
         "_where": np.where, "_true": np.True_, "_false": np.False_,
         "_inf": np.inf, "_nan": np.nan,
         "op_min": _nanmin, "op_max": _nanmax, "op_sqrt": np.sqrt,
