@@ -46,16 +46,27 @@ Phases, each printing its own lines:
      device="cpu" run; and at the defaults, where it goes to the tiles too.
 Phase 3 also holds kernels B6 and B7 against their plain versions on the
 tile lists of phases 9 to 11, and kernels B1 to B5 at the shapes phase 9
-gives them: B1, B2, B3 on blobby's whole 2**26 grid (the speculative dense
-pass), B2 to B5 on the 512 tile volumes, the tile-cell mask and the
-per-tile edge mask.
+gives them: B1 (in both dtypes), B2, B3 on blobby's whole 2**26 grid (the
+speculative dense pass), B2 to B5 on the 512 tile volumes, the tile-cell
+mask and the per-tile edge mask.  For B1 it prints the launch plan (slab
+length, blocks, evaluations a sample); for B4 the share of its time that
+the memset of its look-back scratch takes.
 Then one JSON line with every kernel, the card line again, and last the
 result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
-``python3 chip_smoke.py --ptxas`` instead compiles the per-tile kernels of
-four zoo models with ``-Xptxas -v`` and prints each kernel's registers and
-spills (no card needed, only nvcc).
+``python3 chip_smoke.py --ptxas`` instead compiles kernels B1 and B6/B7
+of four zoo models with ``-Xptxas -v`` and prints each kernel's registers,
+stack and spills, the SASS instructions per point of the example's and
+blobby's bodies (a one-point probe kernel, counted with cuobjdump), and,
+on a machine with a card, B1's instruction floor on their main-path grids:
+those instructions times the samples B1's plan evaluates, over the card's
+issue rate.
+
+``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
+length forced to each of a range of values, on the example's 2**22 grid
+and blobby's 2**26 grid in both dtypes, each run held bit-equal to the
+default plan's output.
 """
 
 import cProfile
@@ -222,11 +233,12 @@ def _flush_l2():
     _FLUSH["buf"].bitwise_not_()
 
 
-def device_ms(fn, reps=20, warm=3):
+def device_ms(fn, reps=20, warm=3, match=None):
     """Device time per call of ``fn`` in ms, each call after an L2 flush:
     the summed durations of the kernels (and memsets) it launches, from
-    torch.profiler, so host work between launches is not counted.  Raises
-    if the profiler saw no kernel of ``fn``."""
+    torch.profiler, so host work between launches is not counted; with
+    ``match``, of those whose name holds it only.  Raises if the profiler
+    saw no such activity of ``fn``."""
     import torch
 
     _flush_l2()
@@ -239,7 +251,8 @@ def device_ms(fn, reps=20, warm=3):
             _flush_l2()
             fn()
 
-    evs = _kernel_events(_profiled(run)[0], _FLUSH["names"])
+    evs = [e for e in _kernel_events(_profiled(run)[0], _FLUSH["names"])
+           if match is None or match in e.name]
     if not evs:
         raise RuntimeError("torch.profiler recorded no CUDA kernel of the "
                            "timed call")
@@ -278,6 +291,29 @@ def bound_ms(nbytes, ops=0, dtype="float32"):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / PEAK_FLOPS[dtype] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def issue_rate():
+    """Thread instructions the card can issue per second: per SM, 4
+    schedulers of 32 lanes, one warp instruction a clock each, at the SM's
+    highest clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def instruction_floor_ms(counts, evaluations, rate):
+    """The least time for ``evaluations`` points at ``counts`` = (SASS
+    instructions, float64 ones) per point: the issue rate, or for float64
+    the FP64 pipes, which take a warp instruction every second clock."""
+    n, nd = counts
+    return max(n, 2 * nd) * evaluations / rate * 1e3
 
 
 def body_op_count(src):
@@ -357,42 +393,190 @@ def check_tile_order(verts, faces, axes, tile):
           "every vertex belongs to one tile, and vertices are in tile order")
 
 
+PROBE = r"""
+extern "C" __global__ void sdf_probe_f32(
+    const float* __restrict__ in, float* __restrict__ out,
+    const __grid_constant__ Params<float> P) {
+  const Fields<float> none = {};
+  out[0] = sdf_point<float>(in[0], in[1], in[2], P, none, 0);
+}
+extern "C" __global__ void sdf_probe_f64(
+    const double* __restrict__ in, double* __restrict__ out,
+    const __grid_constant__ Params<double> P) {
+  const Fields<double> none = {};
+  out[0] = sdf_point<double>(in[0], in[1], in[2], P, none, 0);
+}
+"""
+
+
+def _cubin_flags():
+    from sdf_torch import _build
+
+    return [f for f in _build.FLAGS if f not in ("-shared", "-Xcompiler",
+                                                  "-fPIC")]
+
+
+def start_probe(f, tmp):
+    """Start compiling a one-point probe kernel of ``f``'s per-point body
+    (the source of kernel B1 with two entry points appended) to a cubin in
+    directory ``tmp``; returns the nvcc process and the cubin's path."""
+    from sdf_torch import _build
+    from sdf_torch.core import eval_classify
+
+    cu = os.path.join(tmp, "probe.cu")
+    with open(cu, "w") as fp:
+        fp.write(eval_classify.kernel_source(f) + PROBE)
+    cubin = os.path.join(tmp, "probe.cubin")
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_cubin_flags(), "-cubin", "-o", cubin, cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, cubin
+
+
+def probe_instructions(proc, cubin):
+    """SASS instructions per point of a probe from ``start_probe``, per
+    dtype, with the float64 arithmetic among them: the probe's instructions
+    up to its first unpredicated EXIT.  That is the body's straight-line
+    path (the slow paths of IEEE division and sqrt sit after the EXIT and
+    run only on special operands) plus the probe's own few loads, store and
+    setup."""
+    import re
+
+    from sdf_torch import _build
+
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for the probe:\n" + out)
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        n = nd = 0
+        for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part):
+            n += 1
+            words = ins.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            nd += op.startswith(("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"))
+            if ins.strip() == "EXIT":
+                break
+        counts["float32" if name.endswith("f32") else "float64"] = (n, nd)
+    return counts
+
+
 def ptxas_report():
-    """Registers and spill bytes of the four eval_tiles entry kernels, for
-    a narrow and three wide expression trees, from ``nvcc -Xptxas -v``."""
+    """Registers, stack and spill bytes of every entry kernel of B1 and of
+    B6/B7, for a narrow and three wide expression trees, from ``nvcc
+    -Xptxas -v``; the SASS instructions per point of the example's and
+    blobby's bodies (``probe_instructions``) and, with a card, B1's
+    instruction floor on their main-path grids."""
     import re
     import tempfile
+
+    import numpy as np
+    import torch
 
     import sdf_torch as sp
     from sdf_torch import _build
     from sdf_torch.core import eval_classify
     from sdf_torch.models import zoo
 
-    flags = [f for f in _build.FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
     models = {"example": example(sp), "blobby": zoo.blobby(),
               "knurling": zoo.knurling(), "weave": zoo.weave()}
-    for name, f in models.items():
-        src = eval_classify.tile_kernel_source(f)
-        with tempfile.TemporaryDirectory() as tmp:
-            cu = os.path.join(tmp, "k.cu")
-            with open(cu, "w") as fp:
-                fp.write(src)
-            out = subprocess.run(
-                [_build.nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
-                 os.path.join(tmp, "k.cubin"), cu],
-                capture_output=True, text=True, check=True).stderr
-        print("%s (%d ops/point):" % (name, body_op_count(src)))
-        for fn, info in re.findall(
-                r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ registers[^\n]*)",
-                out, re.S):
-            kind = "%s, %s" % ("double" if "IdL" in fn else "float",
-                               "clamp" if "Lb1" in fn else "fields")
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", info)
-            regs = re.search(r"Used (\d+) registers", info).group(1)
-            print("  %-14s %s registers, spill stores %s B, loads %s B"
-                  % (kind, regs, spill.group(1), spill.group(2)))
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        for name, f in models.items():
+            for kind, src in (("B1", eval_classify.kernel_source(f)),
+                              ("B6/B7", eval_classify.tile_kernel_source(f))):
+                cu = os.path.join(tmp, "%s_%s.cu" % (name, kind[:2]))
+                with open(cu, "w") as fp:
+                    fp.write(src)
+                jobs[name, kind] = (body_op_count(src), subprocess.Popen(
+                    [_build.nvcc(), *_cubin_flags(), "-Xptxas", "-v", "-cubin",
+                     "-o", cu + "bin", cu], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        probes = {}
+        for name in ("example", "blobby"):
+            os.mkdir(os.path.join(tmp, name))
+            probes[name] = start_probe(models[name], os.path.join(tmp, name))
+        for (name, kind), (ops, proc) in jobs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + out)
+            print("%s %s (%d ops/point):" % (name, kind, ops))
+            for fn, info in re.findall(
+                    r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
+                    r"registers[^\n]*)", out, re.S):
+                dtype = "double" if re.search(r"kernelId", fn) else "float"
+                if "eval_tiles" in fn:
+                    dtype += ", clamp" if "Lb1" in fn else ", fields"
+                stack = re.search(r"(\d+) bytes stack frame", info).group(1)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", info)
+                regs = re.search(r"Used (\d+) registers", info).group(1)
+                print("  %-15s %s registers, stack %s B, spill stores %s B, "
+                      "loads %s B" % (dtype, regs, stack, spill.group(1),
+                                      spill.group(2)))
+        sass = {name: probe_instructions(*job) for name, job in probes.items()}
+    rate = issue_rate() if torch.cuda.is_available() else None
+    if rate:
+        print("issue rate %.4g instructions/s" % rate)
+    for name, samples in (("example", 2**22), ("blobby", 2**26)):
+        print("%s: SASS instructions per point (total, float64 arithmetic) %s"
+              % (name, json.dumps(sass[name])))
+        shape = [len(a) for a in grid_axes(models[name], samples,
+                                           torch.float32)]
+        evals = eval_classify.slab_evaluations(*shape)
+        for dt, counts in sass[name].items():
+            floor = ("%.4f ms" % instruction_floor_ms(counts, evals, rate)
+                     if rate else "not measured (no card)")
+            print("  B1 %s on the %s grid: %d evaluations (%.4f a sample), "
+                  "instruction floor %s" % (dt, "x".join(map(str, shape)),
+                                            evals, evals / np.prod(shape),
+                                            floor))
+    return 0
+
+
+def slab_sweep(dev):
+    """Kernel B1 with its slab length forced to each of a range of values,
+    on the example's 2**22 grid and blobby's 2**26 grid in both dtypes: one
+    JSON line each with the device ms, the blocks and the evaluations a
+    sample, each output held bit-equal to that of the default plan."""
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch import _build
+    from sdf_torch.core import eval_classify
+    from sdf_torch.models import zoo
+
+    print(card_line())
+    models = {"example": (example(sp), 2**22), "blobby": (zoo.blobby(), 2**26)}
+    _build.build_many([("eval_classify", eval_classify.kernel_source(g))
+                       for g, _ in models.values()])
+    for name, (g, samples) in models.items():
+        axes = grid_axes(g, samples, torch.float32)
+        shape = tuple(len(a) for a in axes)
+        for dt in (torch.float32, torch.float64):
+            ints = torch.int32 if dt == torch.float32 else torch.int64
+            vol, cas = eval_classify.eval_and_classify(g, *axes, dt, dev)
+            for lx in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128):
+                run = lambda: eval_classify._launch(g, *axes, dt, dev, lx)
+                vk, ck = run()
+                if not (torch.equal(vk.view(ints), vol.view(ints))
+                        and torch.equal(ck, cas)):
+                    raise AssertionError("B1 with slabs of %d planes differs "
+                                         "from the default plan" % lx)
+                del vk, ck
+                print(json.dumps(dict(
+                    model=name, shape=shape, dtype=str(dt).split(".")[1],
+                    lx=lx, default=lx == eval_classify.SLAB,
+                    blocks=int(np.prod(eval_classify.slab_plan(*shape, lx))),
+                    evaluations_per_sample=eval_classify.slab_evaluations(
+                        *shape, lx) / np.prod(shape),
+                    ms=device_ms(run, reps=10, warm=2))), flush=True)
+            del vol, cas
     return 0
 
 
@@ -417,6 +601,8 @@ def main():
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if "--slab-sweep" in sys.argv[1:]:
+        return slab_sweep(dev)
     kernels = {}
 
     # -- phase 1 ---------------------------------------------------------------
@@ -459,7 +645,17 @@ def main():
     npts = len(X) * len(Y) * len(Z)
     print("grid %d x %d x %d (%d points)" % (len(X), len(Y), len(Z), npts))
 
+    def b1_plan(axes):
+        """Kernel B1's launch plan on a grid, printed."""
+        shape = tuple(len(a) for a in axes)
+        grid = eval_classify.slab_plan(*shape)
+        print("  B1 plan for %s: slabs of %d cell planes, %d blocks %s, %.4f "
+              "evaluations a sample" % (
+                  shape, eval_classify.SLAB, int(np.prod(grid)), grid,
+                  eval_classify.slab_evaluations(*shape) / np.prod(shape)))
+
     # B1 in both dtypes; the float32 numbers go into the kernels line.
+    b1_plan((X, Y, Z))
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[1]
         vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, dt, dev)
@@ -478,7 +674,8 @@ def main():
             len(a) for a in (X, Y, Z)) * vk.element_size()
         b, by = bound_ms(nbytes, ops_pt * npts + 16 * ncell, name)
         print("  B1 %s: kernel_ms %.4f plain_ms %.4f bound_ms %.4f (%s; %d "
-              "ops/point) max_abs_err %g" % (name, ms, pms, b, by, ops_pt, err))
+              "ops/point) max_abs_err %g" % (name, ms, pms, b, by, ops_pt,
+                                             err))
         if dt == torch.float32:
             kernels["eval_classify"] = dict(
                 name="eval_classify", route="cuda",
@@ -624,6 +821,15 @@ def main():
                   and int(tk) == int(tp),
                   "B5 indices_and_ranktable_of: density %g, %d slots"
                   % (dens, size))
+    # B4 on a view of the main-path mask that starts off a 16-byte
+    # boundary, with capacity above and below its count.
+    view = aflat[5:]
+    for cap in (int(view.sum()) + 11, int(view.sum()) // 2):
+        ik, tk = compact.indices_of(view, cap)
+        ip, tp = compact._indices_of_plain(view, cap)
+        check(torch.equal(ik, ip) and int(tk) == int(tp),
+              "B4 indices_of on a view at address %% 16 = %d, capacity %d"
+              % (view.data_ptr() % 16, cap))
     for m, key, what in ((aflat, "indices_of", "B4"),
                          (emask, "indices_and_ranktable_of", "B5")):
         cnt = int(m.sum())
@@ -650,6 +856,9 @@ def main():
               "library_ms %s bound_ms %.4f (%s) max_abs_err %g"
               % (what, key, m.numel(), cnt, ms, pms,
                  "%.4f" % lms if lms else "null", b, by, err))
+        if what == "B4":
+            print("  B4 indices_of: of that, the memset of its look-back "
+                  "scratch %.4f ms" % device_ms(run, match="Memset"))
         kernels[key] = dict(
             name=key, route="cuda", source="sdf_torch/csrc/compact.cu",
             replaces=("sdf_tpu/core/compact.py:118" if what == "B4"
@@ -730,6 +939,9 @@ def main():
                       warm=1),
             bound_ms(cells.numel() + 4 * cap),
             device_ms(lambda: torch.nonzero(cells)), cells.numel())
+        print("  B4 on the tiles, %s: the memset of its look-back scratch "
+              "%.4f ms" % (name, device_ms(lambda: compact.indices_of(
+                  cells, cap), match="Memset")))
         m = emask.reshape(-1)
         ecap = mc.round_capacity(int(n_edges))
         got, want = (compact.indices_and_ranktable_of(m, ecap),
@@ -806,8 +1018,9 @@ def main():
     # The routed run's speculative dense pass gives B1, B2 and B3 blobby's
     # whole 2^26 grid, another expression and 16 times the cells of the
     # example's grid above: held against plain there too (float32, the
-    # default).
+    # default; B1 in float64 too).
     axes = grid_axes(blobby, 2**26, torch.float32)
+    b1_plan(axes)
     vk, ck = eval_classify.eval_and_classify(blobby, *axes, torch.float32, dev)
     vp, cp = eval_classify._eval_classify_plain(blobby, *axes, torch.float32,
                                                 dev)
@@ -863,6 +1076,22 @@ def main():
             slots=ncell, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
             bound_by=by, library_ms=lms)
     del vk, ck, ek
+    vk, ck = eval_classify.eval_and_classify(blobby, *axes, torch.float64, dev)
+    vp, cp = eval_classify._eval_classify_plain(blobby, *axes, torch.float64,
+                                                dev)
+    check(same_bits(vk, vp) and torch.equal(ck, cp),
+          "B1 eval_classify float64 on blobby's %s grid: vol and case "
+          "bit-equal to plain" % (tuple(vk.shape),))
+    err = max_abs_diff([(vk, vp), (ck, cp)])
+    del vk, ck, vp, cp
+    ms = device_ms(lambda: eval_classify.eval_and_classify(
+        blobby, *axes, torch.float64, dev), reps=5, warm=1)
+    pms = device_ms(lambda: eval_classify._eval_classify_plain(
+        blobby, *axes, torch.float64, dev), reps=2, warm=1)
+    b, by = bound_ms(8 * npts26 + 4 * ncell, ops_pt * npts26 + 16 * ncell,
+                     "float64")
+    print("  B1 on blobby's 2^26 grid float64: kernel_ms %.4f plain_ms %.4f "
+          "bound_ms %.4f (%s) max_abs_err %g" % (ms, pms, b, by, err))
 
     # B7 with fields: the gather-marked table lookup, recorded at rotated
     # points (one field) and under circular_array (two fields), against the

@@ -7,12 +7,15 @@
 32 slots (exclusive offset, bitmask word), from which ``rank_lookup``
 recovers the compacted rank of any True slot.
 
-On a CUDA tensor both launch the ballot kernels of ``csrc/compact.cu``
-(kernels B4 and B5) and never sync with the host: the count stays a
-device tensor.  On a CPU tensor they run the plain versions below, which
-the tests hold against the JAX package and ``chip_smoke.py`` holds the
-kernels against.  The TPU-only helpers of the JAX module (``gather1d``,
-the 128-lane row tricks) have no counterpart: plain indexing serves.
+On a CUDA tensor they launch the kernels of ``csrc/compact.cu`` and never
+sync with the host: the count stays a device tensor.  ``indices_of`` is
+kernel B4, one launch that reads the mask once (a single-pass scan with
+decoupled look-back); ``indices_and_ranktable_of`` is kernel B5, a count
+pass, a device ``cumsum`` and a scatter pass.  On a CPU tensor they run the
+plain versions below, which the tests hold against the JAX package and
+``chip_smoke.py`` holds the kernels against.  The TPU-only helpers of the
+JAX module (``gather1d``, the 128-lane row tricks) have no counterpart:
+plain indexing serves.
 """
 
 from __future__ import annotations
@@ -23,17 +26,26 @@ import torch
 
 from .. import _build
 
-_BLOCK = 1024  # slots per block of csrc/compact.cu
+_BLOCK = 1024  # slots per block of B5's kernels (csrc/compact.cu BLOCK)
+# Kernel B4's launch plan (csrc/compact.cu): a chunk is IDX_CHUNK slots;
+# at most _TAIL_BLOCKS blocks, one per _TAIL_SLOTS output words, zero the
+# output's tail.
+_IDX_CHUNK = 256 * 4 * 16
+_TAIL_SLOTS = 4096
+_TAIL_BLOCKS = 256
 
 
 def _lib():
     lib = _build.load("compact", _build.source("compact.cu"))
     if not getattr(lib, "_sdf_typed", False):
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.sdf_compact_indices.argtypes = [vp, i64, i32, i32, i32, vp, i64,
+                                            vp, vp, vp]
         lib.sdf_compact_count.argtypes = [vp, i64, vp, vp]
         lib.sdf_compact_scatter.argtypes = [vp, i64, vp, vp, i64, vp, vp]
-        lib.sdf_compact_count.restype = ctypes.c_int
-        lib.sdf_compact_scatter.restype = ctypes.c_int
+        for fn in (lib.sdf_compact_indices, lib.sdf_compact_count,
+                   lib.sdf_compact_scatter):
+            fn.restype = ctypes.c_int
         lib._sdf_typed = True
     return lib
 
@@ -47,24 +59,59 @@ def _check_mask(mask, capacity):
         raise ValueError("capacity must be >= 0")
 
 
-def _compact_cuda(mask, capacity, with_table, counter):
-    """Both passes of csrc/compact.cu; returns (idx, table or None, total).
-    Adds one to ``counter.launches`` when the kernels run (an empty mask
-    launches nothing)."""
-    _build.require_cuda(mask, "compact")
-    lib = _lib()
+def indices_plan(address, n, capacity):
+    """Kernel B4's launch plan for a mask of ``n`` slots at device address
+    ``address``: ``(off, nchunks, ntail)``.  The kernel reads the 16-byte
+    granules of the aligned space that holds the mask, so slot ``i`` is
+    virtual slot ``i + off``; ``nchunks`` chunks of ``_IDX_CHUNK`` virtual
+    slots cover it, and ``ntail`` more blocks zero the output's tail."""
+    off = address % 16
+    nchunks = -(-(off + n) // _IDX_CHUNK)
+    ntail = min(_TAIL_BLOCKS, -(-capacity // _TAIL_SLOTS))
+    return off, nchunks, ntail
+
+
+def _indices_cuda(mask, capacity):
+    """Kernel B4: one launch after a memset of its scratch (the look-back
+    status words and the chunk ticket); returns ``(idx, count)``.  Adds one
+    to ``indices_of.launches`` when it launches (an empty mask launches
+    nothing)."""
+    _build.require_cuda(mask, "indices_of")
     dev = mask.device
     n = mask.numel()
-    nblocks = max(1, -(-n // _BLOCK))
-    stream = _build.stream_ptr(dev)
-    counts = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    out = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    table = (
-        torch.empty(2 * (-(-n // 32)), dtype=torch.int32, device=dev)
-        if with_table else None
+    if n == 0:
+        return (torch.zeros(capacity, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    lib = _lib()
+    off, nchunks, ntail = indices_plan(mask.data_ptr(), n, capacity)
+    out = torch.empty(capacity, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(nchunks + 1, dtype=torch.int64, device=dev)
+    _build.check(
+        lib.sdf_compact_indices(
+            mask.data_ptr(), n, off, nchunks, ntail, out.data_ptr(), capacity,
+            count.data_ptr(), scratch.data_ptr(), _build.stream_ptr(dev),
+        ),
+        "compact indices",
     )
+    indices_of.launches += 1
+    return out, count
+
+
+def _ranktable_cuda(mask, capacity):
+    """Kernel B5, both passes; returns ``(idx, table, total)``.  Adds one to
+    ``indices_and_ranktable_of.launches`` when the kernels run (an empty
+    mask launches nothing)."""
+    _build.require_cuda(mask, "indices_and_ranktable_of")
+    dev = mask.device
+    n = mask.numel()
+    out = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    table = torch.empty(2 * (-(-n // 32)), dtype=torch.int32, device=dev)
     if n == 0:
         return out, table, torch.zeros((), dtype=torch.int32, device=dev)
+    lib = _lib()
+    stream = _build.stream_ptr(dev)
+    counts = torch.empty(-(-n // _BLOCK), dtype=torch.int32, device=dev)
     _build.check(
         lib.sdf_compact_count(mask.data_ptr(), n, counts.data_ptr(), stream),
         "compact count",
@@ -74,11 +121,11 @@ def _compact_cuda(mask, capacity, with_table, counter):
     _build.check(
         lib.sdf_compact_scatter(
             mask.data_ptr(), n, excl.data_ptr(), out.data_ptr(), capacity,
-            table.data_ptr() if with_table else None, stream,
+            table.data_ptr(), stream,
         ),
         "compact scatter",
     )
-    counter.launches += 1
+    indices_and_ranktable_of.launches += 1
     return out, table, incl[-1]
 
 
@@ -97,8 +144,7 @@ def indices_of(mask, capacity):
     _check_mask(mask, capacity)
     if mask.device.type == "cpu":
         return _indices_of_plain(mask, capacity)
-    idx, _, total = _compact_cuda(mask, capacity, False, indices_of)
-    return idx, total
+    return _indices_cuda(mask, capacity)
 
 
 indices_of.launches = 0
@@ -138,7 +184,7 @@ def indices_and_ranktable_of(mask, capacity):
     _check_mask(mask, capacity)
     if mask.device.type == "cpu":
         return _ranktable_plain(mask, capacity)
-    return _compact_cuda(mask, capacity, True, indices_and_ranktable_of)
+    return _ranktable_cuda(mask, capacity)
 
 
 indices_and_ranktable_of.launches = 0

@@ -41,8 +41,14 @@ from .node import Points, cast, tree_leaves, tree_map, upload
 
 _TARGET_CHUNK_POINTS = 2**22
 _BODY_MARK = "//@SDF_BODY@"
+_PARAMS_MARK = "//@SDF_PARAMS@"
 _POINT_INCLUDE = '#include "sdf_point.cuh"'
 MAX_FIELDS = 32  # csrc/sdf_point.cuh MAX_FIELDS
+# Parameters up to this count travel by value in the kernel arguments (the
+# card's constant bank): 384 float64 values are 3 KB, which leaves room in
+# the 4 KB of arguments for B7's 32 field pointers and the rest.  A wider
+# expression reads them from device memory (csrc/sdf_point.cuh Params).
+MAX_ARG_PARAMS = 384
 
 
 # --- the recorder -------------------------------------------------------------
@@ -292,6 +298,17 @@ def _bind(sdf, em):
     return tree_map(leaf, sdf)
 
 
+def param_count(sdf):
+    """The number of parameter values of ``sdf`` (its leaves' sizes)."""
+    return sum(int(np.size(x)) for x in tree_leaves(sdf))
+
+
+def params_in_args(sdf):
+    """Whether the kernels take ``sdf``'s parameters by value in their
+    arguments (else from device memory): a property of its structure."""
+    return param_count(sdf) <= MAX_ARG_PARAMS
+
+
 def _source(template, sdf, nf=0):
     """The kernel source ``template`` for ``sdf``'s structure: the shared
     per-point piece ``csrc/sdf_point.cuh`` spliced in at its include line,
@@ -313,7 +330,10 @@ def _source(template, sdf, nf=0):
     if not isinstance(d, Rec) or d.shape != () or d.kind != "f":
         raise NotImplementedError("expression did not record to one value")
     body = "\n".join(em.lines + ["  return %s;" % d.expr[()]])
-    point = _build.source("sdf_point.cuh").replace(_BODY_MARK, body)
+    params = "#define SDF_NPARAMS %d\n#define SDF_PARAMS_IN_ARGS %d" % (
+        param_count(sdf), params_in_args(sdf))
+    point = _build.source("sdf_point.cuh").replace(_BODY_MARK, body).replace(
+        _PARAMS_MARK, params)
     return _build.source(template).replace(_POINT_INCLUDE, point)
 
 
@@ -340,10 +360,27 @@ def tile_kernel_source(sdf, nf=0):
 
 
 def _flat_params(sdf, dtype, device):
+    return upload([_host_params(sdf)], dtype, device)[0]
+
+
+def _host_params(sdf):
     leaves = [np.ravel(np.asarray(x, dtype=np.float64))
               for x in tree_leaves(sdf)]
-    flat = np.concatenate(leaves) if leaves else np.zeros(1)
-    return upload([flat], dtype, device)[0]
+    return np.concatenate(leaves) if leaves else np.zeros(1)
+
+
+def _params_arg(sdf, dtype, device):
+    """What a kernel entry takes as ``P``: the host array of the parameter
+    values in ``dtype`` when they travel in the kernel arguments (the entry
+    copies them at launch), else the values on ``device``."""
+    if params_in_args(sdf):
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        return np.ascontiguousarray(_host_params(sdf).astype(np_dtype))
+    return _flat_params(sdf, dtype, device)
+
+
+def _address(a):
+    return a.ctypes.data if isinstance(a, np.ndarray) else a.data_ptr()
 
 
 # --- the plain pair --------------------------------------------------------------
@@ -379,27 +416,56 @@ def _eval_classify_plain(sdf, X, Y, Z, dtype, device):
 # --- kernel B1 -----------------------------------------------------------------
 
 
-def _launch(sdf, X, Y, Z, dtype, device):
+# Kernel B1's launch plan (csrc/eval_classify.cu): a block owns a patch of
+# (_PY - 1) x (_PZ - 1) cells in y and z, and a slab of SLAB cell planes
+# along x.  Measured on the H100 (chip_smoke.py --slab-sweep), 16 planes
+# are within 2% of the fastest length at 162^3 and within 5% at 407^3,
+# where longer slabs win; one length keeps every grid of 2^22 samples and
+# up at <= 1.17 evaluations a sample.
+_PZ, _PY = 32, 16
+SLAB = 16
+
+
+def slab_plan(nx, ny, nz, lx=SLAB):
+    """Kernel B1's grid of blocks for an ``nx x ny x nz`` sample grid with
+    slabs of ``lx`` cell planes: ``(gz, gy, gx)``, the z patches, the y
+    patches and the x slabs."""
+    return (-(-(nz - 1) // (_PZ - 1)), -(-(ny - 1) // (_PY - 1)),
+            -(-(nx - 1) // lx))
+
+
+def slab_evaluations(nx, ny, nz, lx=SLAB):
+    """Samples kernel B1 evaluates with slabs of ``lx`` cell planes (halos
+    included).  The plan is separable: per axis, each block evaluates its
+    cells' samples plus one, as far as the grid reaches."""
+
+    def axis(n, cells):
+        return sum(min(cells + 1, n - a) for a in range(0, n - 1, cells))
+
+    return axis(nx, lx) * axis(ny, _PY - 1) * axis(nz, _PZ - 1)
+
+
+def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB):
     if dtype not in (torch.float32, torch.float64):
         raise ValueError("eval_and_classify: dtype must be float32 or float64")
     nx, ny, nz = len(X), len(Y), len(Z)
     if min(nx, ny, nz) < 2:
         raise ValueError("eval_and_classify: every axis needs >= 2 samples")
-    src = kernel_source(sdf)
-    lib = _build.load("eval_classify", src)
-    name = "sdf_eval_classify_" + ("f32" if dtype == torch.float32 else "f64")
-    fn = getattr(lib, name)
+    lib = _build.load("eval_classify", kernel_source(sdf))
+    fn = getattr(lib, "sdf_eval_classify_"
+                 + ("f32" if dtype == torch.float32 else "f64"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp]
+    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp, vp, vp]
     fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
-    P = _flat_params(sdf, dtype, device)
+    P = _params_arg(sdf, dtype, device)
     vol = torch.empty((nx, ny, nz), dtype=dtype, device=device)
     case = torch.empty((nx - 1, ny - 1, nz - 1), dtype=torch.int32,
                        device=device)
+    gz, gy, gx = slab_plan(nx, ny, nz, lx)
     _build.check(
-        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), P.data_ptr(),
-           nx, ny, nz, vol.data_ptr(), case.data_ptr(),
+        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), _address(P), nx, ny,
+           nz, lx, gz, gy, gx, vol.data_ptr(), case.data_ptr(),
            _build.stream_ptr(vol.device)),
         "eval_classify",
     )
@@ -491,10 +557,10 @@ def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, clamp, fields, counter):
                    vp, vp]
     fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, tiles.device)
-    P = _flat_params(sdf, dtype, tiles.device)
+    P = _params_arg(sdf, dtype, tiles.device)
     ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
     _build.check(
-        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), P.data_ptr(),
+        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), _address(P),
            tiles.data_ptr(), ntc, len(X), len(Y), len(Z), tile, ptrs,
            len(fields), vols.data_ptr(), case.data_ptr(),
            _build.stream_ptr(tiles.device)),

@@ -24,7 +24,8 @@
 // Design:
 //   * core/eval_classify.py splices sdf_point.cuh in at the #include line
 //     with the per-point body generated from the expression, the same body
-//     the dense kernel gets.
+//     and the same parameter form (kernel arguments or device memory) the
+//     dense kernel gets.
 //   * A tile's samples do not fit one block's shared memory in float64
 //     (33^3 * 8 B = 287 KB), so each tile is cut into bricks of TX*TY*TZ
 //     cells, as the dense kernel cuts the grid.  blockIdx.x is the tile
@@ -45,12 +46,39 @@
 
 namespace {
 
+// Cells per brick along x, y, z (z fastest); samples are one more each way.
+constexpr int TX = 4, TY = 8, TZ = 32;
+constexpr int SX = TX + 1, SY = TY + 1, SZ = TZ + 1;
+constexpr int NTHREADS = 256;
+
+// Corner b of a cell sits at cell + CORNER_OFFSETS[b] (core/mc_tables.py).
+__constant__ int kCorner[8][3] = {
+    {0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
+    {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1},
+};
+
+// The 8-bit case code of the cell at (lx, ly, lz) of a block's shared sample
+// brick `s` (SX x SY x SZ, z fastest): bit b set iff corner b is inside.
+template <typename T>
+__device__ __forceinline__ int32_t brick_case(const T* s, int lx, int ly,
+                                              int lz) {
+  int32_t code = 0;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const T v = s[((lx + kCorner[b][0]) * SY + ly + kCorner[b][1]) * SZ + lz +
+                  kCorner[b][2]];
+    code |= (v < T(0)) ? (1 << b) : 0;
+  }
+  return code;
+}
+
 template <typename T, bool CLAMP>
 __global__ void __launch_bounds__(NTHREADS)
 eval_tiles_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                  const T* __restrict__ Z, const T* __restrict__ P,
+                  const T* __restrict__ Z, const __grid_constant__ Params<T> P,
                   const int32_t* __restrict__ tiles, int nx, int ny, int nz,
-                  int tile, int bricks_y, int bricks_z, const Fields<T> F,
+                  int tile, int bricks_y, int bricks_z,
+                  const __grid_constant__ Fields<T> F,
                   T* __restrict__ vols, int32_t* __restrict__ cas) {
   __shared__ T s[SX * SY * SZ];
   const int64_t t = blockIdx.x;
@@ -114,7 +142,7 @@ int launch(const void* X, const void* Y, const void* Z, const void* P,
   if ((int64_t)bx * by * bz > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)ntc, (unsigned)(bx * by * bz), 1);
   eval_tiles_kernel<T, CLAMP><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)X, (const T*)Y, (const T*)Z, (const T*)P,
+      (const T*)X, (const T*)Y, (const T*)Z, params_from<T>(P),
       (const int32_t*)tiles, nx, ny, nz, tile, by, bz, F, (T*)vols,
       (int32_t*)cas);
   return (int)cudaGetLastError();

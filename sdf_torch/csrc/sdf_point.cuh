@@ -5,16 +5,24 @@
 // This is not a header that a compiler finds: core/eval_classify.py splices
 // its text into each kernel source at the line that includes this file,
 // with the body of `sdf_point` generated from the expression (one C++
-// statement per recorded op) at the SDF_BODY mark.  Parameter leaves are
-// read from `P`, not baked in as literals, so new parameter values reuse the
-// compiled library.  A statement that stands for a subtree evaluated ahead of
-// the kernel (a gather the body cannot hold) reads `F.p[k][fi]`: field input
-// k at the point's own linear index.
+// statement per recorded op) at the SDF_BODY mark, and the expression's
+// parameter count and form at the SDF_PARAMS mark.  Parameter leaves are read
+// as `P[k]`, not baked in as literals, so new parameter values reuse the
+// compiled library.  Up to MAX_ARG_PARAMS of core/eval_classify.py they
+// travel by value in the kernel's arguments, which the card keeps in its
+// constant bank: a leaf is then an instruction operand, not a load.  A wider
+// expression (the form is chosen when the source is generated, from its leaf
+// count) reads them from device memory.  A statement that stands for a
+// subtree evaluated ahead of the kernel (a gather the body cannot hold) reads
+// `F.p[k][fi]`: field input k at the point's own linear index.
 //
 // Built with -fmad=false and without fast math: every op rounds as the
 // separate elementwise PyTorch kernels of the plain versions do.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
+
+//@SDF_PARAMS@
 
 namespace {
 
@@ -54,6 +62,33 @@ __device__ __forceinline__ T op_sign(T a) {
   return T((T(0) < a) - (a < T(0)));
 }
 
+// The expression's parameters: SDF_NPARAMS values, by value in the kernel
+// arguments (declare the kernel's argument __grid_constant__ so the body
+// reads it in place) or, when SDF_PARAMS_IN_ARGS is 0, a device pointer.
+template <typename T>
+struct Params {
+#if SDF_PARAMS_IN_ARGS
+  T p[SDF_NPARAMS > 0 ? SDF_NPARAMS : 1];
+  __device__ __forceinline__ T operator[](int k) const { return p[k]; }
+#else
+  const T* __restrict__ p;
+  __device__ __forceinline__ T operator[](int k) const { return __ldg(p + k); }
+#endif
+};
+
+// Params from the wrapper's argument: the host address of the values when
+// they travel in the arguments, else their device address.
+template <typename T>
+Params<T> params_from(const void* P) {
+  Params<T> out;
+#if SDF_PARAMS_IN_ARGS
+  std::memcpy(out.p, P, sizeof(T) * SDF_NPARAMS);
+#else
+  out.p = (const T*)P;
+#endif
+  return out;
+}
+
 // Field inputs of a kernel, passed by value (core/eval_classify.py holds
 // the same limit and raises above it).
 constexpr int MAX_FIELDS = 32;
@@ -63,35 +98,9 @@ struct Fields {
 };
 
 template <typename T>
-__device__ __forceinline__ T sdf_point(T x, T y, T z, const T* __restrict__ P,
+__device__ __forceinline__ T sdf_point(T x, T y, T z, const Params<T>& P,
                                        const Fields<T>& F, int64_t fi) {
 //@SDF_BODY@
-}
-
-// Cells per block along x, y, z (z fastest); samples are one more each way.
-constexpr int TX = 4, TY = 8, TZ = 32;
-constexpr int SX = TX + 1, SY = TY + 1, SZ = TZ + 1;
-constexpr int NTHREADS = 256;
-
-// Corner b of a cell sits at cell + CORNER_OFFSETS[b] (core/mc_tables.py).
-__constant__ int kCorner[8][3] = {
-    {0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
-    {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1},
-};
-
-// The 8-bit case code of the cell at (lx, ly, lz) of a block's shared sample
-// brick `s` (SX x SY x SZ, z fastest): bit b set iff corner b is inside.
-template <typename T>
-__device__ __forceinline__ int32_t brick_case(const T* s, int lx, int ly,
-                                              int lz) {
-  int32_t code = 0;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const T v = s[((lx + kCorner[b][0]) * SY + ly + kCorner[b][1]) * SZ + lz +
-                  kCorner[b][2]];
-    code |= (v < T(0)) ? (1 << b) : 0;
-  }
-  return code;
 }
 
 }  // namespace

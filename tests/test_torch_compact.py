@@ -133,20 +133,24 @@ class _FakeLib:
 @pytest.mark.parametrize("n", [0, 70])
 def test_compact_counts_only_launches(monkeypatch, n, with_table):
     """The CUDA path counts a launch exactly when it calls the kernels: an
-    empty mask returns before launching and counts none.  Driven on the CPU
-    with a stand-in library (the device checks are bypassed)."""
+    empty mask returns before launching and counts none; B4 is one launch,
+    B5 its two passes.  Driven on the CPU with a stand-in library (the
+    device checks are bypassed)."""
     lib = _FakeLib()
     monkeypatch.setattr(tc, "_lib", lambda: lib)
     monkeypatch.setattr(tc._build, "require_cuda", lambda t, what: None)
     monkeypatch.setattr(tc._build, "stream_ptr", lambda dev: None)
     wrapper = tc.indices_and_ranktable_of if with_table else tc.indices_of
+    launch = tc._ranktable_cuda if with_table else tc._indices_cuda
     before = wrapper.launches
-    out = tc._compact_cuda(torch.zeros(n, dtype=torch.bool), 8, with_table,
-                           wrapper)
-    assert len(out) == 3 and out[0].shape == (8,)
+    out = launch(torch.zeros(n, dtype=torch.bool), 8)
+    assert len(out) == (3 if with_table else 2) and out[0].shape == (8,)
     if n == 0:
         assert lib.calls == [] and wrapper.launches == before
-    else:
+    elif with_table:
         assert lib.calls == ["sdf_compact_count", "sdf_compact_scatter"]
+        assert wrapper.launches == before + 1
+    else:
+        assert lib.calls == ["sdf_compact_indices"]
         assert wrapper.launches == before + 1
     wrapper.launches = before

@@ -44,16 +44,27 @@ def cuda():
     from sdf_torch import _build
 
     exprs = [case[0](sp) for case in th.op_cases().values()]
-    exprs.append(sp.sphere(0.6).union(sp.box(0.8), k=0.2))
+    exprs += [sp.sphere(0.6).union(sp.box(0.8), k=0.2), _wide_expression()]
     _build.build_many(
         [("eval_classify", eval_classify.kernel_source(f)) for f in exprs]
         + [("eval_tiles", eval_classify.tile_kernel_source(f))
-           for f in (th.example(sp), zoo.blobby())]
+           for f in (th.example(sp), zoo.blobby(), _wide_expression())]
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
            ("classify_ext", _build.source("classify_ext.cu"))]
     )
     return torch.device("cuda")
+
+
+def _wide_expression(scale=1.0):
+    """A union of 100 spheres: 400 parameter values, more than travel in
+    the kernel arguments, so the kernels read them from device memory."""
+    f = sp.sphere(0.1 * scale)
+    for i in range(99):
+        f = f | sp.sphere((0.05 + 0.001 * i) * scale, center=(
+            0.01 * i - 0.5, 0.06 * ((i * 7) % 5) - 0.3, 0.02 * (i % 11) - 0.1))
+    assert not eval_classify.params_in_args(f)
+    return f
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -65,6 +76,59 @@ def test_eval_classify_kernel(cuda, dtype):
         vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, dtype, cuda)
         vp, cp = eval_classify._eval_classify_plain(f, X, Y, Z, dtype, cuda)
         assert _same_bits(vk, vp) and torch.equal(ck, cp)
+
+
+# Axes of length 2 and prime lengths under the launch plan; then, with the
+# slab length forced to lx, nx shorter than one slab and nx - 1 = k * lx - 1,
+# k * lx, k * lx + 1 cell planes.
+B1_SHAPES = [((2, 2, 2), None), ((2, 37, 3), None), ((3, 2, 41), None),
+             ((37, 41, 43), None), ((101, 103, 107), None),
+             ((10, 45, 70), 16), ((48, 45, 70), 16), ((49, 45, 70), 16),
+             ((50, 45, 70), 16), ((15, 33, 95), 7), ((16, 33, 95), 7)]
+
+
+@pytest.mark.parametrize("shape, lx", B1_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eval_classify_kernel_shapes(cuda, dtype, shape, lx):
+    """Kernel B1 bit-equal to its plain version on grids whose edges cut the
+    patches and slabs of its launch plan everywhere."""
+    nx, ny, nz = shape
+    X = np.linspace(-1.1, 1.1, nx)
+    Y = np.linspace(-1.0, 1.2, ny)
+    Z = np.linspace(-1.2, 1.0, nz)
+    f = th.example(sp)
+    before = eval_classify.eval_and_classify.launches
+    if lx is None:
+        vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, dtype, cuda)
+    else:
+        vk, ck = eval_classify._launch(f, X, Y, Z, dtype, cuda, lx)
+    assert eval_classify.eval_and_classify.launches == before + 1
+    vp, cp = eval_classify._eval_classify_plain(f, X, Y, Z, dtype, cuda)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_read_wide_parameters_from_memory(cuda, dtype):
+    """An expression with more parameter values than the kernel arguments
+    hold: kernels B1 and B6 read them from device memory, bit-equal to
+    their plain versions; new values reuse the compiled library."""
+    f = _wide_expression()
+    X = np.linspace(-0.7, 0.7, 45)
+    vk, ck = eval_classify.eval_and_classify(f, X, X, X, dtype, cuda)
+    vp, cp = eval_classify._eval_classify_plain(f, X, X, X, dtype, cuda)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
+    assert int((ck > 0).sum()) > 0
+    tiles = torch.as_tensor(th.grid_tiles((45,) * 3, 8,
+                                          np.random.default_rng(2)), device=cuda)
+    vk, ck = eval_classify.eval_tiles_and_classify_batched(f, X, X, X, tiles,
+                                                           8, dtype)
+    vp = eval_classify._eval_tiles(f, X, X, X, tiles, 8, dtype)
+    assert _same_bits(vk, vp) and torch.equal(ck, mc._cell_cases(vp))
+    g = _wide_expression(1.2)  # other values, the same library
+    assert eval_classify.kernel_source(g) == eval_classify.kernel_source(f)
+    vk, ck = eval_classify.eval_and_classify(g, X, X, X, dtype, cuda)
+    vp, cp = eval_classify._eval_classify_plain(g, X, X, X, dtype, cuda)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
 
 
 @pytest.mark.parametrize("name", sorted(th.op_cases()))
@@ -165,6 +229,81 @@ def test_compact_kernels(cuda, n, density):
         ip, wp, tp = compact._ranktable_plain(m, cap)
         assert torch.equal(ik, ip) and torch.equal(wk, wp)
         assert int(tk) == int(tp)
+
+
+def _b4_masks(n):
+    rng = np.random.default_rng(n)
+    last = np.zeros(n, bool)
+    last[-1] = True
+    return {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+            "last": last, "1e-3": rng.random(n) < 1e-3,
+            "0.5": rng.random(n) < 0.5}
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "last", "1e-3", "0.5"])
+def test_indices_of_over_many_chunks(cuda, kind):
+    """Kernel B4 on 2^24 + 13 slots (over a thousand chunks of its
+    look-back), with capacity above, at and below the count."""
+    m = torch.as_tensor(_b4_masks(2**24 + 13)[kind], device=cuda)
+    total = int(m.sum())
+    for cap in (total + 4099, total, max(1, total // 3)):
+        before = compact.indices_of.launches
+        ik, tk = compact.indices_of(m, cap)
+        assert compact.indices_of.launches == before + 1
+        ip, tp = compact._indices_of_plain(m, cap)
+        assert torch.equal(ik, ip) and int(tk) == int(tp) == total
+
+
+@pytest.mark.parametrize("start", [1, 3, 8, 15])
+def test_indices_of_on_a_misaligned_view(cuda, start):
+    """A bool view whose first byte is not 16-byte aligned, with a ragged
+    end: kernel B4 reads its edges byte by byte and equals plain."""
+    base = torch.as_tensor(_b4_masks(70001)["0.5"], device=cuda)
+    for end in (base.numel(), base.numel() - 5, start + 40):
+        m = base[start:end]
+        assert m.data_ptr() % 16 != 0
+        cap = int(m.sum()) + 9
+        ik, tk = compact.indices_of(m, cap)
+        ip, tp = compact._indices_of_plain(m, cap)
+        assert torch.equal(ik, ip) and int(tk) == int(tp)
+
+
+def test_indices_of_back_to_back_on_one_stream(cuda):
+    """Eight launches of kernel B4 queued on one stream with no sync between
+    them (each scratch is freed to the stream's pool and may be the next
+    one's), then one more pair on two other streams; each result equals
+    the plain version."""
+    rng = np.random.default_rng(8)
+    masks = [torch.as_tensor(rng.random(n) < d, device=cuda) for n, d in
+             [(2**20 + 3, 0.5), (5, 1.0), (2**22, 1e-3), (16384, 1.0),
+              (3 * 16384 + 1, 0.0), (2**21 - 7, 0.9), (100003, 0.01),
+              (2**23, 0.5)]]
+    caps = [int(m.sum()) + 17 for m in masks]
+    torch.cuda.synchronize()
+    got = [compact.indices_of(m, c) for m, c in zip(masks, caps)]
+    for m, c, (ik, tk) in zip(masks, caps, got):
+        ip, tp = compact._indices_of_plain(m, c)
+        assert torch.equal(ik, ip) and int(tk) == int(tp)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    out = []
+    for st, m, c in zip(streams, masks[:2], caps[:2]):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            out.append(compact.indices_of(m, c))
+    torch.cuda.synchronize()
+    for m, c, (ik, tk) in zip(masks, caps, out):
+        ip, tp = compact._indices_of_plain(m, c)
+        assert torch.equal(ik, ip) and int(tk) == int(tp)
+
+
+def test_ranktable_kernel_over_many_blocks(cuda):
+    """Kernel B5, unchanged, on 2^24 + 13 slots: bit-equal to plain."""
+    for kind, m in _b4_masks(2**24 + 13).items():
+        m = torch.as_tensor(m, device=cuda)
+        cap = int(m.sum()) + 3
+        got = compact.indices_and_ranktable_of(m, cap)
+        want = compact._ranktable_plain(m, cap)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), kind
 
 
 def test_compact_empty_mask_counts_no_launch(cuda):

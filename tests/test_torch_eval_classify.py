@@ -155,3 +155,37 @@ def test_tile_wrappers_check_their_tile_list(wrapper):
                     torch.float32)
     assert vols.shape == (0, 5, 5, 5) and case.shape == (0, 4, 4, 4)
     assert case.dtype == torch.int32
+
+
+def _many_spheres(n):
+    f = sp.sphere(0.1)
+    for i in range(n - 1):
+        f = f | sp.sphere(0.05 + 0.001 * i, center=(0.01 * i - 0.5, 0.0, 0.1))
+    return f
+
+
+@pytest.mark.parametrize("nspheres", [1, 96, 97, 100])
+def test_parameter_form_follows_the_leaf_count(nspheres):
+    """Up to MAX_ARG_PARAMS values travel by value in the kernel arguments
+    (the wrapper hands the kernel host values), beyond that in device memory
+    (a tensor): chosen when the source is generated, from the leaf count;
+    the body reads ``P[k]`` either way and computes the plain volume."""
+    f = _many_spheres(nspheres)
+    n = ec.param_count(f)
+    assert n == 4 * nspheres
+    in_args = n <= ec.MAX_ARG_PARAMS
+    assert ec.params_in_args(f) == in_args
+    for src in (ec.kernel_source(f), ec.tile_kernel_source(f)):
+        assert "#define SDF_NPARAMS %d\n" % n in src
+        assert "#define SDF_PARAMS_IN_ARGS %d\n" % in_args in src
+        assert "//@SDF_PARAMS@" not in src
+    P = ec._params_arg(f, torch.float32, "cpu")
+    assert isinstance(P, np.ndarray) == in_args
+    np.testing.assert_array_equal(np.asarray(P), ec._flat_params(
+        f, torch.float32, "cpu").numpy())
+    X = np.linspace(-0.7, 0.7, 9)
+    vt, _ = ec.eval_and_classify(f, X, X, X, torch.float64, "cpu")
+    got = th.run_body(ec.kernel_source(f), X[:, None, None], X[None, :, None],
+                      X[None, None, :],
+                      ec._flat_params(f, torch.float64, "cpu").numpy())
+    np.testing.assert_array_equal(np.broadcast_to(got, vt.shape), vt.numpy())
