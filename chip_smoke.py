@@ -49,24 +49,33 @@ tile lists of phases 9 to 11, and kernels B1 to B5 at the shapes phase 9
 gives them: B1 (in both dtypes), B2, B3 on blobby's whole 2**26 grid (the
 speculative dense pass), B2 to B5 on the 512 tile volumes, the tile-cell
 mask and the per-tile edge mask.  For B1 it prints the launch plan (slab
-length, blocks, evaluations a sample); for B4 the share of its time that
-the memset of its look-back scratch takes.
+length, blocks, evaluations a sample); for B2 its plan (row blocks, slabs,
+blocks), how many cells of case 0 or 255 still carry interior bits (why
+every cell runs B2's body), its time in float64 on blobby's 2**26 grid
+and its time on a random-normal volume of the example's shape (what the
+example's nearly linear cells cost); for B3 it also checks views at
+int32 offsets 1 to 3; for B4 the share of its time that the memset of
+its look-back scratch takes.
 Then one JSON line with every kernel, the card line again, and last the
 result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --ptxas`` instead compiles kernels B1 and B6/B7
-of four zoo models with ``-Xptxas -v`` and prints each kernel's registers,
-stack and spills, the SASS instructions per point of the example's and
-blobby's bodies (a one-point probe kernel, counted with cuobjdump), and,
-on a machine with a card, B1's instruction floor on their main-path grids:
-those instructions times the samples B1's plan evaluates, over the card's
-issue rate.
+of four zoo models, and kernels B2 and B3, with ``-Xptxas -v`` and prints
+each entry function's registers, stack and spills in both dtypes; the SASS
+instructions per point of the example's and blobby's B1 bodies and per
+cell of B2's body (one-point and one-cell probe kernels, counted with
+cuobjdump); and, on a machine with a card, the instruction floors: B1's on
+the example's and blobby's main-path grids (those instructions times the
+samples B1's plan evaluates, over the card's issue rate), and B2's on the
+example's 162^3 grid, blobby's 407^3 grid and the routed run's 512 tile
+volumes (its instructions times the cells).
 
 ``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
 length forced to each of a range of values, on the example's 2**22 grid
-and blobby's 2**26 grid in both dtypes, each run held bit-equal to the
-default plan's output.
+and blobby's 2**26 grid in both dtypes, and kernel B2 with its slab length
+forced, on those grids and on 512 tile volumes; each run is held
+bit-equal to the default plan's output.
 """
 
 import cProfile
@@ -74,6 +83,7 @@ import hashlib
 import json
 import os
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -225,8 +235,11 @@ def _flush_l2():
 
     if "buf" not in _FLUSH:
         _FLUSH["buf"] = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
-        names = {e.name for e in _kernel_events(_profiled(
-            lambda: _FLUSH["buf"].bitwise_not_())[0])}
+        for _ in range(4):  # the profiler may drop a profile's events
+            names = {e.name for e in _kernel_events(_profiled(
+                lambda: _FLUSH["buf"].bitwise_not_())[0])}
+            if names:
+                break
         if not names:
             raise RuntimeError("torch.profiler recorded no CUDA kernel")
         _FLUSH["names"] = names
@@ -237,8 +250,11 @@ def device_ms(fn, reps=20, warm=3, match=None):
     """Device time per call of ``fn`` in ms, each call after an L2 flush:
     the summed durations of the kernels (and memsets) it launches, from
     torch.profiler, so host work between launches is not counted; with
-    ``match``, of those whose name holds it only.  Raises if the profiler
-    saw no such activity of ``fn``."""
+    ``match``, of those whose name holds it only.  The profiler on the
+    card sometimes drops events: a profile with none, or with a kernel
+    that is not a whole number of times per call, is taken again (up to
+    four profiles, each with a note; the last one that recorded any is
+    used).  Raises if none recorded a kernel of ``fn``."""
     import torch
 
     _flush_l2()
@@ -251,12 +267,22 @@ def device_ms(fn, reps=20, warm=3, match=None):
             _flush_l2()
             fn()
 
-    evs = [e for e in _kernel_events(_profiled(run)[0], _FLUSH["names"])
-           if match is None or match in e.name]
-    if not evs:
+    kept = None
+    for attempt in range(4):
+        evs = [e for e in _kernel_events(_profiled(run)[0], _FLUSH["names"])
+               if match is None or match in e.name]
+        counts = {}
+        for e in evs:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        kept = evs or kept
+        if evs and all(c % reps == 0 for c in counts.values()):
+            break
+        print("  (profile %d of a timing recorded %s kernels for %d calls; "
+              "taken again)" % (attempt + 1, sorted(counts.values()), reps))
+    if not kept:
         raise RuntimeError("torch.profiler recorded no CUDA kernel of the "
                            "timed call")
-    return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+    return sum(e.time_range.elapsed_us() for e in kept) / reps / 1e3
 
 
 def max_abs_diff(pairs):
@@ -440,8 +466,6 @@ def probe_instructions(proc, cubin):
     path (the slow paths of IEEE division and sqrt sit after the EXIT and
     run only on special operands) plus the probe's own few loads, store and
     setup."""
-    import re
-
     from sdf_torch import _build
 
     out, _ = proc.communicate()
@@ -465,13 +489,64 @@ def probe_instructions(proc, cubin):
     return counts
 
 
+PROBE_B2 = r"""
+template <typename T>
+__device__ __forceinline__ int32_t probe_cell(const T* in, int32_t cas,
+                                              const int32_t* tab) {
+  T c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = in[i] - in[8];
+  return ext_combine(cas, extra_bits<T>(c), tab);
+}
+extern "C" __global__ void sdf_cell_probe_f32(
+    const float* __restrict__ in, const int32_t* __restrict__ cas,
+    const int32_t* __restrict__ tab, int32_t* __restrict__ out) {
+  out[0] = probe_cell<float>(in, cas[0], tab);
+}
+extern "C" __global__ void sdf_cell_probe_f64(
+    const double* __restrict__ in, const int32_t* __restrict__ cas,
+    const int32_t* __restrict__ tab, int32_t* __restrict__ out) {
+  out[0] = probe_cell<double>(in, cas[0], tab);
+}
+"""
+
+
+def _entry_label(fn):
+    """A readable name for a mangled entry function of B1-B7."""
+    for key, label in (("classify_ext_kernelIf", "B2 classify_ext float"),
+                       ("classify_ext_kernelId", "B2 classify_ext double"),
+                       ("ext_from_bits", "B2 ext_from_bits (int32)"),
+                       ("ntri_kernel", "B3 ntri (int32)")):
+        if key in fn:
+            return label
+    dtype = "double" if re.search(r"kernelId", fn) else "float"
+    if "eval_tiles" in fn:
+        dtype += ", clamp" if "Lb1" in fn else ", fields"
+    return dtype
+
+
+def _print_ptxas(out):
+    """Registers, stack and spills of each entry function in an ``nvcc
+    -Xptxas -v`` log."""
+    for fn, info in re.findall(
+            r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
+            r"registers[^\n]*)", out, re.S):
+        stack = re.search(r"(\d+) bytes stack frame", info).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", info)
+        regs = re.search(r"Used (\d+) registers", info).group(1)
+        print("  %-26s %s registers, stack %s B, spill stores %s B, "
+              "loads %s B" % (_entry_label(fn), regs, stack, spill.group(1),
+                              spill.group(2)))
+
+
 def ptxas_report():
     """Registers, stack and spill bytes of every entry kernel of B1 and of
-    B6/B7, for a narrow and three wide expression trees, from ``nvcc
-    -Xptxas -v``; the SASS instructions per point of the example's and
-    blobby's bodies (``probe_instructions``) and, with a card, B1's
-    instruction floor on their main-path grids."""
-    import re
+    B6/B7, for a narrow and three wide expression trees, and of B2 and B3,
+    from ``nvcc -Xptxas -v``; the SASS instructions per point of the
+    example's and blobby's bodies and per cell of B2's body
+    (``probe_instructions``) and, with a card, the instruction floors of B1
+    and B2 on their main-path shapes."""
     import tempfile
 
     import numpy as np
@@ -479,7 +554,7 @@ def ptxas_report():
 
     import sdf_torch as sp
     from sdf_torch import _build
-    from sdf_torch.core import eval_classify
+    from sdf_torch.core import eval_classify, mc33
     from sdf_torch.models import zoo
 
     models = {"example": example(sp), "blobby": zoo.blobby(),
@@ -496,29 +571,40 @@ def ptxas_report():
                     [_build.nvcc(), *_cubin_flags(), "-Xptxas", "-v", "-cubin",
                      "-o", cu + "bin", cu], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True))
+        b23 = {}
+        for stem, src in (("classify_ext", mc33.kernel_source()),
+                          ("ntri", _build.source("ntri.cu"))):
+            cu = os.path.join(tmp, stem + ".cu")
+            with open(cu, "w") as fp:
+                fp.write(src)
+            b23[stem] = subprocess.Popen(
+                [_build.nvcc(), *_cubin_flags(), "-Xptxas", "-v", "-cubin",
+                 "-o", cu + "bin", cu], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
         probes = {}
         for name in ("example", "blobby"):
             os.mkdir(os.path.join(tmp, name))
             probes[name] = start_probe(models[name], os.path.join(tmp, name))
+        cu = os.path.join(tmp, "cell_probe.cu")
+        with open(cu, "w") as fp:
+            fp.write(_build.source("mc33_cell.cuh") + PROBE_B2)
+        b2_probe = (subprocess.Popen(
+            [_build.nvcc(), *_cubin_flags(), "-cubin", "-o",
+             cu + "bin", cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), cu + "bin")
         for (name, kind), (ops, proc) in jobs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed:\n" + out)
             print("%s %s (%d ops/point):" % (name, kind, ops))
-            for fn, info in re.findall(
-                    r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
-                    r"registers[^\n]*)", out, re.S):
-                dtype = "double" if re.search(r"kernelId", fn) else "float"
-                if "eval_tiles" in fn:
-                    dtype += ", clamp" if "Lb1" in fn else ", fields"
-                stack = re.search(r"(\d+) bytes stack frame", info).group(1)
-                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                                  r"spill loads", info)
-                regs = re.search(r"Used (\d+) registers", info).group(1)
-                print("  %-15s %s registers, stack %s B, spill stores %s B, "
-                      "loads %s B" % (dtype, regs, stack, spill.group(1),
-                                      spill.group(2)))
+            _print_ptxas(out)
+        for proc in b23.values():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + out)
+            _print_ptxas(out)
         sass = {name: probe_instructions(*job) for name, job in probes.items()}
+        sass_b2 = probe_instructions(*b2_probe)
     rate = issue_rate() if torch.cuda.is_available() else None
     if rate:
         print("issue rate %.4g instructions/s" % rate)
@@ -535,6 +621,27 @@ def ptxas_report():
                   "instruction floor %s" % (dt, "x".join(map(str, shape)),
                                             evals, evals / np.prod(shape),
                                             floor))
+    # B2 on the grids of the example (2^22) and blobby (2^26), and on the
+    # routed run's 512 tile volumes of 32^3 cells.
+    print("B2 classify_ext: SASS instructions per cell (total, float64 "
+          "arithmetic) %s" % json.dumps(sass_b2))
+    for what, cells in (
+            ("the example's %s grid" % "x".join(
+                str(len(a)) for a in grid_axes(models["example"], 2**22,
+                                               torch.float32)),
+             np.prod([len(a) - 1 for a in grid_axes(
+                 models["example"], 2**22, torch.float32)])),
+            ("blobby's %s grid" % "x".join(
+                str(len(a)) for a in grid_axes(models["blobby"], 2**26,
+                                               torch.float32)),
+             np.prod([len(a) - 1 for a in grid_axes(
+                 models["blobby"], 2**26, torch.float32)])),
+            ("512 tile volumes of 33^3 samples", 512 * 32**3)):
+        for dt, counts in sass_b2.items():
+            floor = ("%.4f ms" % instruction_floor_ms(counts, cells, rate)
+                     if rate else "not measured (no card)")
+            print("  B2 %s on %s: %d cells, instruction floor %s"
+                  % (dt, what, cells, floor))
     return 0
 
 
@@ -542,19 +649,24 @@ def slab_sweep(dev):
     """Kernel B1 with its slab length forced to each of a range of values,
     on the example's 2**22 grid and blobby's 2**26 grid in both dtypes: one
     JSON line each with the device ms, the blocks and the evaluations a
-    sample, each output held bit-equal to that of the default plan."""
+    sample, each output held bit-equal to that of the default plan.  Then
+    kernel B2 (``b2_sweep``) on B1's volumes and on blobby's 512 tile
+    volumes, in both dtypes."""
     import numpy as np
     import torch
 
     import sdf_torch as sp
     from sdf_torch import _build
-    from sdf_torch.core import eval_classify
+    from sdf_torch.core import eval_classify, mc33
     from sdf_torch.models import zoo
 
     print(card_line())
     models = {"example": (example(sp), 2**22), "blobby": (zoo.blobby(), 2**26)}
     _build.build_many([("eval_classify", eval_classify.kernel_source(g))
-                       for g, _ in models.values()])
+                       for g, _ in models.values()]
+                      + [("eval_tiles", eval_classify.tile_kernel_source(
+                          models["blobby"][0])),
+                         ("classify_ext", mc33.kernel_source())])
     for name, (g, samples) in models.items():
         axes = grid_axes(g, samples, torch.float32)
         shape = tuple(len(a) for a in axes)
@@ -576,8 +688,42 @@ def slab_sweep(dev):
                     evaluations_per_sample=eval_classify.slab_evaluations(
                         *shape, lx) / np.prod(shape),
                     ms=device_ms(run, reps=10, warm=2))), flush=True)
+            b2_sweep(name, vol, cas, dev)
             del vol, cas
+    # B2 on the routed run's tile volumes (blobby's kept tiles, from B6).
+    g = models["blobby"][0]
+    axes = grid_axes(g, 2**26, torch.float32)
+    tiles, _ = kept_tiles(g, axes, 32, torch.float32, dev)
+    for dt in (torch.float32, torch.float64):
+        vols, case = eval_classify.eval_tiles_and_classify_batched(
+            g, *axes, tiles, 32, dt)
+        b2_sweep("blobby tiles", vols, case, dev)
+        del vols, case
     return 0
+
+
+def b2_sweep(name, vol, cas, dev):
+    """Kernel B2 on ``vol`` (with ``cas`` as its base cases) under forced
+    slab lengths: one JSON line each, every output held bit-equal to the
+    default plan's."""
+    import torch
+
+    from sdf_torch.core import mc33
+
+    nx, ny, nz = vol.shape[-3:]
+    nb = vol.numel() // (nx * ny * nz)
+    want = mc33.classify_ext(vol, base_case=cas)
+    for lx in (4, 8, 16, 32, 64):
+        run = lambda: mc33._launch(vol, 0.0, cas, lx)
+        if not torch.equal(run(), want):
+            raise AssertionError("B2 with slabs of %d planes differs from "
+                                 "the default plan" % lx)
+        print(json.dumps(dict(
+            kernel="classify_ext", model=name, shape=tuple(vol.shape),
+            dtype=str(vol.dtype).split(".")[1], lx=lx,
+            blocks=mc33.ext_plan(nb, nx, ny, nz, lx)[4],
+            default=lx == mc33.EXT_SLAB,
+            ms=device_ms(run, reps=10, warm=2))), flush=True)
 
 
 def main():
@@ -634,7 +780,7 @@ def main():
     ] + [
         ("ntri", _build.source("ntri.cu")),
         ("compact", _build.source("compact.cu")),
-        ("classify_ext", _build.source("classify_ext.cu")),
+        ("classify_ext", mc33.kernel_source()),
     ])
     print("built %d libraries in %.1f s: %s" % (
         len(libs), time.time() - t0, ", ".join(p.name for p in libs)))
@@ -653,6 +799,28 @@ def main():
               "evaluations a sample" % (
                   shape, eval_classify.SLAB, int(np.prod(grid)), grid,
                   eval_classify.slab_evaluations(*shape) / np.prod(shape)))
+
+    def b2_plan(vol):
+        """Kernel B2's launch plan on a volume, printed."""
+        nx, ny, nz = vol.shape[-3:]
+        nb = vol.numel() // (nx * ny * nz)
+        nrb, nslab, _, _, blocks = mc33.ext_plan(nb, nx, ny, nz)
+        print("  B2 plan for %s: %d row blocks of %d cells a plane, slabs of "
+              "%d cell planes, %d blocks" % (
+                  tuple(vol.shape), nrb, mc33._EXT_THREADS, mc33.EXT_SLAB,
+                  blocks))
+
+    def b2_interior_bits(ext, cas, what):
+        """Cells of case 0 or 255 (no face ambiguous, all weights 0) whose
+        ext carries interior bits: OFFSET[case] + ibits9 with ibits9 != 0.
+        Why B2 cannot skip the cells that do not cross the surface."""
+        off = mc33._offw(ext.device)[:256]
+        flat = (cas == 0) | (cas == 255)
+        ib = ext - off[cas.clamp(0, 255).long()]
+        print("  B2 on %s: %d of %d cells have case 0 or 255; %d of those "
+              "carry interior bits (ibits9 != 0)" % (
+                  what, int(flat.sum()), cas.numel(),
+                  int((flat & (ib != 0)).sum())))
 
     # B1 in both dtypes; the float32 numbers go into the kernels line.
     b1_plan((X, Y, Z))
@@ -727,6 +895,9 @@ def main():
         check(torch.equal(ek, ep),
               "B2 classify_ext %s: main-path volume bit-equal to plain" % name)
         err = max_abs_diff([(ek, ep)])
+        if dt == torch.float32:
+            b2_plan(vol)
+            b2_interior_bits(ek, cas, "the example's grid")
         rnd = torch.as_tensor(
             np.random.default_rng(11).standard_normal(tuple(vol.shape)),
             dtype=dt, device=dev)
@@ -736,7 +907,15 @@ def main():
             check(torch.equal(gk, gp), "B2 classify_ext %s: random-normal "
                   "volume at level %g bit-equal to plain" % (name, level))
             err = max(err, max_abs_diff([(gk, gp)]))
-        del rnd, gk, gp
+        # The same work on a random-normal volume, whose trilinear
+        # coefficients are of order one: beside the example's time, what its
+        # nearly linear cells cost (coefficients near zero, where an IEEE
+        # division or square root can leave its fast path).
+        rc = mc._cell_cases(rnd)
+        print("  B2 classify_ext %s on the random-normal volume: kernel_ms "
+              "%.4f" % (name, device_ms(lambda: mc33.classify_ext(
+                  rnd, base_case=rc))))
+        del rnd, gk, gp, rc
         sv = special_volumes(dt, dev)
         gk, gp = mc33.classify_ext(sv), mc33._classify_ext_plain(sv)
         check(torch.equal(gk, gp) and torch.equal(
@@ -780,6 +959,16 @@ def main():
         check(torch.equal(got, want),
               "B3 ntri (%d entries): main-path grid equal to plain" % nt)
         err = max(err, max_abs_diff([(got, want)]))
+        flat = grid.reshape(-1)
+        for off in (1, 2, 3):
+            view = flat[off:]
+            got, want = mc.ntri_of(view, variant), mc._ntri_plain(view, table)
+            check(torch.equal(got, want) and torch.equal(
+                mc.ntri_of(codes[off:], variant),
+                mc._ntri_plain(codes[off:], table)),
+                "B3 ntri (%d entries): views at int32 offset %d (address %% "
+                "16 = %d) equal to plain" % (nt, off, view.data_ptr() % 16))
+            err = max(err, max_abs_diff([(got, want)]))
         n = grid.numel()
         ms = device_ms(lambda: mc.ntri_of(grid, variant))
         pms = device_ms(lambda: mc._ntri_plain(grid, table))
@@ -899,6 +1088,8 @@ def main():
         ep = mc33._classify_ext_plain(vols, base_case=case)
         check(torch.equal(ek, ep), "B2 classify_ext %s on %s tile volumes "
               "with B6's cases: bit-equal to plain" % (name, tuple(vols.shape)))
+        if keep:
+            b2_plan(vols)
         ncell = case.numel()
         rows["classify_ext"] = (
             max_abs_diff([(ek, ep)]),
@@ -1034,6 +1225,8 @@ def main():
     check(torch.equal(ek, ep), "B2 classify_ext on that volume bit-equal to "
           "plain")
     err2 = max_abs_diff([(ek, ep)])
+    b2_plan(vk)
+    b2_interior_bits(ek, ck, "blobby's 2^26 grid")
     del ep
     table = mc.get_tables("lewiner").on(dev, "ntri")
     got, want = mc.ntri_of(ek, "lewiner"), mc._ntri_plain(ek, table)
@@ -1083,7 +1276,19 @@ def main():
           "B1 eval_classify float64 on blobby's %s grid: vol and case "
           "bit-equal to plain" % (tuple(vk.shape),))
     err = max_abs_diff([(vk, vp), (ck, cp)])
-    del vk, ck, vp, cp
+    del vp, cp
+    # B2 in float64 on that volume (the routed run's dense pass is float32;
+    # a float64 call at 2^26 gives B2 this shape).
+    ek = mc33.classify_ext(vk, base_case=ck)
+    check(torch.equal(ek, mc33._classify_ext_plain(vk, base_case=ck)),
+          "B2 classify_ext float64 on that volume bit-equal to plain")
+    del ek
+    b, by = bound_ms(8 * npts26 + 8 * ncell, CLASSIFY_EXT_OPS_PER_CELL * ncell,
+                     "float64")
+    print("  B2 classify_ext float64 on blobby's 2^26 grid: kernel_ms %.4f "
+          "bound_ms %.4f (%s)" % (device_ms(lambda: mc33.classify_ext(
+              vk, base_case=ck), reps=5, warm=1), b, by))
+    del vk, ck
     ms = device_ms(lambda: eval_classify.eval_and_classify(
         blobby, *axes, torch.float64, dev), reps=5, warm=1)
     pms = device_ms(lambda: eval_classify._eval_classify_plain(

@@ -51,6 +51,12 @@ class Tables:
         tri_table = np.asarray(tri_table, np.int32)
         self.tri = tri_table  # (ncase, max_tris, 3), -1 padded
         self.ntri = np.asarray(ntri_table, np.int32)
+        # The counts as bytes for kernel B3 (at most 10 triangles a cell),
+        # padded to a multiple of 16 for its 16-byte table copy.
+        if self.ntri.min() < 0 or self.ntri.max() > 255:
+            raise ValueError("triangle counts must fit a byte")
+        self.ntri_u8 = np.zeros(-(-self.ntri.size // 16) * 16, np.uint8)
+        self.ntri_u8[: self.ntri.size] = self.ntri
         self.ncase = tri_table.shape[0]
         self.max_tris = tri_table.shape[1]
         self.case_bits = int(self.ncase - 1).bit_length()
@@ -71,11 +77,13 @@ class Tables:
         return mc33.classify_ext(volume, level)
 
     def on(self, device, name):
-        """A table as a tensor on ``device`` (cached)."""
+        """A table as a tensor on ``device`` (cached): uint8 for the byte
+        tables, int32 for the others."""
         key = (str(device), name)
         if key not in self._dev:
             a = getattr(self, name)
-            self._dev[key] = upload([a], torch.int32, device)[0]
+            dtype = torch.uint8 if a.dtype == np.uint8 else torch.int32
+            self._dev[key] = upload([a], dtype, device)[0]
         return self._dev[key]
 
     def __repr__(self):
@@ -109,14 +117,46 @@ def get_tables(variant="default"):
 # --- kernel B3: ntri lookup --------------------------------------------------
 
 
+# Kernel B3's launch plan (csrc/ntri.cu NTHREADS, BLOCKS_PER_SM).
+_NTRI_THREADS = 256
+_NTRI_BLOCKS_PER_SM = 8
+
+
 def _ntri_lib():
     lib = _build.load("ntri", _build.source("ntri.cu"))
     if not getattr(lib, "_sdf_typed", False):
-        vp = ctypes.c_void_p
-        lib.sdf_ntri.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int, vp, vp]
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.sdf_ntri.argtypes = [vp, i64, i, i64, i, vp, i, vp, vp]
         lib.sdf_ntri.restype = ctypes.c_int
         lib._sdf_typed = True
     return lib
+
+
+def ntri_plan(address, n, sms):
+    """Kernel B3's launch plan for ``n`` int32 codes at device address
+    ``address`` on a card of ``sms`` SMs: ``(head, nvec, tail, blocks)``.
+    The first ``head`` codes reach the first 16-byte boundary, ``nvec``
+    vectors of 4 follow, then ``tail`` (at most 3) codes; ``blocks`` is the
+    SMs times the blocks that fit on one, or fewer when there are fewer
+    vectors than their lanes."""
+    if address % 4:
+        raise ValueError("ntri_of: int32 codes at an address that is not a "
+                         "multiple of 4")
+    head = min(n, (-address % 16) // 4)
+    nvec = (n - head) // 4
+    tail = n - head - 4 * nvec
+    blocks = max(1, min(sms * _NTRI_BLOCKS_PER_SM,
+                        -(-nvec // _NTRI_THREADS)))
+    return head, nvec, tail, blocks
+
+
+def _like_at(t, address):
+    """An empty int32 tensor of ``t``'s shape and device whose address has
+    ``address``'s remainder modulo 16 (``address`` a multiple of 4)."""
+    n = t.numel()
+    buf = torch.empty(n + 3, dtype=torch.int32, device=t.device)
+    at = (address - buf.data_ptr()) % 16 // 4
+    return buf[at: at + n].view(t.shape)
 
 
 def _ntri_plain(case, table):
@@ -130,20 +170,26 @@ def ntri_of(case, variant="default"):
     ``case``).  Kernel B3 on CUDA, the plain lookup on the CPU."""
     if case.dtype != torch.int32:
         raise ValueError("case codes must be int32")
-    table = get_tables(variant).on(case.device, "ntri")
+    tab = get_tables(variant)
     if case.device.type == "cpu":
-        return _ntri_plain(case, table).to(torch.int32)
+        return _ntri_plain(case, tab.on(case.device, "ntri")).to(torch.int32)
     _build.require_cuda(case, "ntri_of")
-    out = torch.empty_like(case)
-    if case.numel():
-        _build.check(
-            _ntri_lib().sdf_ntri(
-                case.data_ptr(), case.numel(), table.data_ptr(),
-                table.numel(), out.data_ptr(), _build.stream_ptr(case.device),
-            ),
-            "ntri",
-        )
-        ntri_of.launches += 1
+    n = case.numel()
+    if not n:
+        return torch.empty_like(case)
+    address = case.data_ptr()
+    sms = torch.cuda.get_device_properties(case.device).multi_processor_count
+    head, nvec, _, blocks = ntri_plan(address, n, sms)
+    out = _like_at(case, address)
+    table = tab.on(case.device, "ntri_u8")
+    _build.check(
+        _ntri_lib().sdf_ntri(
+            address, n, head, nvec, blocks, table.data_ptr(), tab.ncase,
+            out.data_ptr(), _build.stream_ptr(case.device),
+        ),
+        "ntri",
+    )
+    ntri_of.launches += 1
     return out
 
 

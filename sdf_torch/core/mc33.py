@@ -9,9 +9,11 @@ per-saddle-index interior code of the trilinear's body saddles.  OFFSET
 reaches 5,895, a WEIGHT at most 288, ext lies in [0, 5904).
 
 ``classify_ext`` computes that code per cell from the evaluated volume.
-On a CUDA tensor it launches kernel B2 (``csrc/classify_ext.cu``): one
-thread per cell reads its 8 corners, runs the face and interior tests and
-looks the per-case constants up.  ``ext_from_bits`` is the table part
+On a CUDA tensor it launches kernel B2 (``csrc/classify_ext.cu``, the
+per-cell body in ``csrc/mc33_cell.cuh``): row blocks of the flattened (y,
+z) cell plane march along x, a lane down each cell column (``ext_plan``),
+and each cell runs the face and interior tests and looks the per-case
+constants up.  ``ext_from_bits`` is the table part
 alone, the contract of the TPU kernel it replaces, and launches the
 second kernel of the same file.  On a CPU tensor both run the plain
 versions below, which perform the same single IEEE operations in the same
@@ -111,13 +113,57 @@ def _ext_from_bits_plain(case, extra):
     return (ext + ((extra >> 6) & 15)).to(torch.int32)
 
 
+_CELL_INCLUDE = '#include "mc33_cell.cuh"'
+
+
+def kernel_source():
+    """The CUDA source of kernel B2: ``csrc/classify_ext.cu`` with the
+    per-cell body ``csrc/mc33_cell.cuh`` spliced in at its include line."""
+    return _build.source("classify_ext.cu").replace(
+        _CELL_INCLUDE, _build.source("mc33_cell.cuh"))
+
+
+# Kernel B2's launch plan (csrc/classify_ext.cu NTHREADS): a block is a
+# row block of _EXT_THREADS consecutive cells of the flattened (y, z) cell
+# plane of one batch volume, marched along a slab of EXT_SLAB cell planes.
+# Slabs of 8 (chip_smoke.py --slab-sweep on the H100): float64 at 162^3
+# needs them to stay ahead of the one-cell-a-thread kernel this replaced;
+# float32 at 407^3 would be 3% faster with 16.
+_EXT_THREADS = 256
+EXT_SLAB = 8
+
+
+def ext_plan(nb, nx, ny, nz, lx=EXT_SLAB):
+    """Kernel B2's launch plan for ``nb`` volumes of ``nx x ny x nz``
+    samples with slabs of ``lx`` cell planes: ``(nrb, nslab, mul, shift,
+    blocks)``, the row blocks of a cell plane, the slabs of a volume, the
+    multiplier and shift that give a cell's row ``p // cz == p * mul >>
+    shift`` for every ``p < 2**31`` (``cz = nz - 1``; the round-up
+    reciprocal, exact because ``2**(shift - 31) >= cz``), and the blocks
+    of the launch.  Raises for a cell plane or a launch of 2**31 cells or
+    blocks or more."""
+    cz = nz - 1
+    cplane = (ny - 1) * cz
+    nrb = -(-cplane // _EXT_THREADS)
+    nslab = -(-(nx - 1) // lx)
+    blocks = nb * nslab * nrb
+    if cplane >= 2**31 or blocks >= 2**31:
+        raise ValueError(
+            "classify_ext: %d cells a plane and %d blocks; both must be "
+            "below 2**31" % (cplane, blocks))
+    shift = 31 + (cz - 1).bit_length()
+    return nrb, nslab, -(-(1 << shift) // cz), shift, blocks
+
+
 def _lib():
-    lib = _build.load("classify_ext", _build.source("classify_ext.cu"))
+    lib = _build.load("classify_ext", kernel_source())
     if not getattr(lib, "_sdf_typed", False):
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        u, u64 = ctypes.c_uint, ctypes.c_uint64
         for name in ("sdf_classify_ext_f32", "sdf_classify_ext_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, i64, i, i, i, ctypes.c_double, vp, vp, vp, vp]
+            fn.argtypes = [vp, i64, i, i, i, i, u, u, u64, i, u,
+                           ctypes.c_double, vp, vp, vp, vp]
             fn.restype = ctypes.c_int
         lib.sdf_ext_from_bits.argtypes = [vp, vp, i64, vp, vp, vp]
         lib.sdf_ext_from_bits.restype = ctypes.c_int
@@ -207,6 +253,35 @@ def _classify_ext_plain(volume, level=0.0, base_case=None):
     return _ext_from_bits_plain(case, extra)
 
 
+def _launch(volume, level, base_case, lx=EXT_SLAB):
+    """Kernel B2 on a CUDA ``volume`` (checked by ``classify_ext``) with
+    slabs of ``lx`` cell planes; returns the ext grid."""
+    _build.require_cuda(volume, "classify_ext")
+    if base_case is not None:
+        _build.require_cuda(base_case, "classify_ext")
+    nx, ny, nz = volume.shape[-3:]
+    ext = torch.empty(tuple(volume.shape[:-3]) + (nx - 1, ny - 1, nz - 1),
+                      dtype=torch.int32, device=volume.device)
+    if not ext.numel():
+        return ext
+    nb = volume.numel() // (nx * ny * nz)
+    nrb, nslab, mul, shift, blocks = ext_plan(nb, nx, ny, nz, lx)
+    name = "sdf_classify_ext_" + (
+        "f32" if volume.dtype == torch.float32 else "f64")
+    _build.check(
+        getattr(_lib(), name)(
+            volume.data_ptr(), nb, nx, ny, nz, lx, nrb, nslab, mul, shift,
+            blocks, float(level),
+            None if base_case is None else base_case.data_ptr(),
+            _offw(volume.device).data_ptr(), ext.data_ptr(),
+            _build.stream_ptr(volume.device),
+        ),
+        "classify_ext",
+    )
+    classify_ext.launches += 1
+    return ext
+
+
 def classify_ext(volume, level=0.0, base_case=None):
     """Extended case code per cell (int32, shape ``(..., nx-1, ny-1,
     nz-1)``) of a float32 or float64 ``volume`` with optional leading batch
@@ -229,25 +304,7 @@ def classify_ext(volume, level=0.0, base_case=None):
         )
     if volume.device.type == "cpu":
         return _classify_ext_plain(volume, level, base_case)
-    _build.require_cuda(volume, "classify_ext")
-    if base_case is not None:
-        _build.require_cuda(base_case, "classify_ext")
-    ext = torch.empty(cshape, dtype=torch.int32, device=volume.device)
-    if ext.numel():
-        name = "sdf_classify_ext_" + (
-            "f32" if volume.dtype == torch.float32 else "f64")
-        nb = volume.numel() // (nx * ny * nz)
-        _build.check(
-            getattr(_lib(), name)(
-                volume.data_ptr(), nb, nx, ny, nz, float(level),
-                None if base_case is None else base_case.data_ptr(),
-                _offw(volume.device).data_ptr(), ext.data_ptr(),
-                _build.stream_ptr(volume.device),
-            ),
-            "classify_ext",
-        )
-        classify_ext.launches += 1
-    return ext
+    return _launch(volume, level, base_case)
 
 
 classify_ext.launches = 0

@@ -11,253 +11,143 @@
 // same XLA pass; `classify_ext_kernel` below fuses it into the same kernel.
 //
 // Two kernels:
-//   * classify_ext_kernel (the main path): one thread per cell reads the
-//     cell's 8 corner samples from the volume (level-shifted), takes the 8-bit
-//     case from kernel B1's grid or derives it, runs the face test and the
-//     guarded interior test, and combines them with the table.
+//   * classify_ext_kernel (the main path): per cell, the 8 corner samples of
+//     the volume (level-shifted), the 8-bit case from kernel B1's grid or
+//     derived from the corners, the face test and the guarded interior test
+//     (mc33_cell.cuh `extra_bits`), combined with the table.
 //   * ext_from_bits_kernel: the table part alone, exactly the TPU kernel's
 //     contract (case, extra) -> ext.
-// Both call the one `ext_combine`.
+// Both call the one `ext_combine` of mc33_cell.cuh.
 //
 // Bound on the card: the fused kernel does ~600 operations per cell (103
 // before the roots, 213 for each of the two roots, 54 for the six face tests,
 // the rest shift, case and combine; two square roots and ten divisions among
-// them) on 4 or 8 bytes of volume
-// read, 4 bytes of case read and 4 bytes of ext written per cell, so it is
-// operation bound against the float32 / float64 peak; the table-only kernel
-// moves 12 bytes per cell and is memory bound against 3.35 TB/s.
+// them) on 4 or 8 bytes of volume read, 4 bytes of case read and 4 bytes of
+// ext written per cell, so it is operation bound against the float32 /
+// float64 peak.  Built with -fmad=false and IEEE sqrt and division, its real
+// floor is the SASS instructions of that body at the card's issue rate
+// (`chip_smoke.py --ptxas`).  The table-only kernel moves 12 bytes per cell
+// and is memory bound against 3.35 TB/s.
 //
-// Design:
-//   * THE ORDER OF EVALUATION IS THE CONTRACT.  `interior_code` is
-//     core/mc33_build.py `interior_flags` term for term with every
-//     parenthesis kept; built with -fmad=false and without fast math (IEEE
-//     sqrt and division), so each operation rounds as the separate
-//     elementwise PyTorch kernels of the plain version do and the ext grid is
-//     bit-equal to it.  Decisions sit behind 64-ulp guards, but only equal
-//     arithmetic makes equal codes on the cells that land on a guard.
-//   * NaN and inf reach this code (an ellipsoid's centre is 0/0).  Every
-//     comparison with NaN is false, as in the plain version; the one maximum
-//     (`clamp0`) passes NaN on as torch.clamp does, which fmax would not; the
-//     sign select of the quadratic formula is a select, not copysign.
-//   * Threads run along z (fastest axis), so a warp's corner loads are
-//     contiguous; each sample is read by up to 8 cells and the repeats are
-//     served by L1/L2.
-//   * The 256 + 1,536 int32 constants are copied into shared memory per block.
+// Design of the fused kernel: the cell body runs on every cell, so the rest
+// is made to cost as little as it can (core/mc33.py ext_plan computes the
+// launch):
+//   * A block is one row block of a (batch volume, x slab): NTHREADS
+//     consecutive cells p of the flattened (y, z) cell plane, one per lane,
+//     each lane marching its cell column along the slab's `lx` cell planes.
+//     The lane's row is y = p / cz by the host's multiplier (p * mul >>
+//     shift, exact for p < 2^31), once per block; nothing is divided per
+//     cell, and offsets advance by a plane per step.  Rows of 32 (tiles), 161
+//     or 406 cells fill the lanes alike: only the plane's last row block has
+//     idle lanes.
+//   * A step reads the four corners of the new sample plane, (y, z), (y, z +
+//     1), (y + 1, z), (y + 1, z + 1) -- neighbouring lanes read neighbouring
+//     addresses, and the L1 serves the repeats -- and carries them in
+//     registers as the next step's four of the old plane: 4 loads a cell, not
+//     8.  The next plane's four are loaded before the body runs.
+//   * No barrier after the table copy: warps run on independently, so one
+//     that takes the slow path of an IEEE division or square root (operands
+//     near zero, where the field is nearly linear) holds no other up.
+//   * The 256 + 1,536 int32 constants are copied into shared memory once per
+//     block, which does `lx` x NTHREADS cells.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mc33_cell.cuh"
+
 namespace {
 
-constexpr int NTHREADS = 256;
+// The launch plan's shape (core/mc33.py mirrors these).
+constexpr int NTHREADS = 256;  // cells of a row block, one per lane
 constexpr int NTAB = 256 * 7;  // OFFSET[256] then WEIGHT[256][6]
-
-__device__ __forceinline__ float t_abs(float a) { return fabsf(a); }
-__device__ __forceinline__ double t_abs(double a) { return fabs(a); }
-__device__ __forceinline__ float t_sqrt(float a) { return sqrtf(a); }
-__device__ __forceinline__ double t_sqrt(double a) { return sqrt(a); }
-// torch.clamp(x, min=0): NaN propagates.
-__device__ __forceinline__ float clamp0(float a) {
-  return (a != a) ? a : fmaxf(a, 0.0f);
-}
-__device__ __forceinline__ double clamp0(double a) {
-  return (a != a) ? a : fmax(a, 0.0);
-}
-// GUARD_ULPS (64) times the machine epsilon of the type.
-__device__ __forceinline__ float guard_of(float) {
-  return 64.0f * 1.1920928955078125e-07f;
-}
-__device__ __forceinline__ double guard_of(double) {
-  return 64.0 * 2.220446049250313e-16;
-}
-
-__device__ __forceinline__ int32_t ext_combine(int32_t cas, int32_t extra,
-                                               const int32_t* tab) {
-  int32_t ext = 0;
-  if (cas >= 0 && cas < 256) {
-    ext = tab[cas];
-#pragma unroll
-    for (int f = 0; f < 6; ++f)
-      if ((extra >> f) & 1) ext += tab[256 + cas * 6 + f];
-  }
-  return ext + ((extra >> 6) & 15);
-}
-
-template <typename T>
-struct Coef {
-  T c000, k1, k2, k3, k4, k5, k6, k7, g;
-};
-
-// One root z = num / den of the critical-point quadratic: flags[0..3] |=
-// (neg1, pos1, neg2, pos2).  The loop body of interior_flags.
-template <typename T>
-__device__ __forceinline__ void root_flags(const Coef<T>& k, T num, T den,
-                                           T errnum, T errden, bool has_roots,
-                                           bool* flags) {
-  const T g = k.g;
-  const bool root_ok = has_roots && (t_abs(den) > errden);
-  const T dsafe = (den == T(0)) ? T(1) : den;
-  const T z = num / dsafe;
-  const T errz = (errnum + t_abs(z) * errden) / t_abs(dsafe);
-
-  const T dd = k.k4 + k.k7 * z;
-  const T errdd = g * (t_abs(k.k4) + t_abs(k.k7 * z)) + t_abs(k.k7) * errz;
-  const bool dd_ok = t_abs(dd) > errdd;
-  const T ddsafe = (dd == T(0)) ? T(1) : dd;
-  const T y = -(k.k1 + k.k5 * z) / ddsafe;
-  const T x = -(k.k2 + k.k6 * z) / ddsafe;
-  const T erry = (g * (t_abs(k.k1) + t_abs(k.k5 * z)) + t_abs(k.k5) * errz +
-                  t_abs(y) * errdd) /
-                 t_abs(ddsafe);
-  const T errx = (g * (t_abs(k.k2) + t_abs(k.k6 * z)) + t_abs(k.k6) * errz +
-                  t_abs(x) * errdd) /
-                 t_abs(ddsafe);
-
-  const T fv = k.c000 + k.k1 * x + k.k2 * y + k.k3 * z + k.k4 * (x * y) +
-               k.k5 * (x * z) + k.k6 * (y * z) + k.k7 * ((x * y) * z);
-  const T fmag = t_abs(k.c000) + t_abs(k.k1 * x) + t_abs(k.k2 * y) +
-                 t_abs(k.k3 * z) + t_abs(k.k4 * (x * y)) +
-                 t_abs(k.k5 * (x * z)) + t_abs(k.k6 * (y * z)) +
-                 t_abs(k.k7 * ((x * y) * z));
-  const T gx = t_abs(k.k1) + t_abs(k.k4 * y) + t_abs(k.k5 * z) +
-               t_abs(k.k7 * (y * z));
-  const T gy = t_abs(k.k2) + t_abs(k.k4 * x) + t_abs(k.k6 * z) +
-               t_abs(k.k7 * (x * z));
-  const T gz = t_abs(k.k3) + t_abs(k.k5 * x) + t_abs(k.k6 * y) +
-               t_abs(k.k7 * (x * y));
-  const T tolfv = g * fmag + gx * errx + gy * erry + gz * errz;
-
-  const bool ok = root_ok && dd_ok && (x > errx) && (x < T(1) - errx) &&
-                  (y > erry) && (y < T(1) - erry) && (z > errz) &&
-                  (z < T(1) - errz);
-  // Saddle index: sign of det H = 2 a b c (a = dd), guarded.
-  const T bb = k.k5 + k.k7 * y;
-  const T cc = k.k6 + k.k7 * x;
-  const T errbb = g * (t_abs(k.k5) + t_abs(k.k7 * y)) + t_abs(k.k7) * erry;
-  const T errcc = g * (t_abs(k.k6) + t_abs(k.k7 * x)) + t_abs(k.k7) * errx;
-  const T det = dd * bb * cc;
-  const T errdet = t_abs(bb * cc) * errdd + t_abs(dd * cc) * errbb +
-                   t_abs(dd * bb) * errcc + (T(2) * g) * t_abs(det);
-  const bool idx2 = det > errdet;
-  const bool fneg = ok && (fv < -tolfv);
-  const bool fpos = ok && (fv > tolfv);
-  flags[0] = flags[0] || (fneg && !idx2);
-  flags[1] = flags[1] || (fpos && !idx2);
-  flags[2] = flags[2] || (fneg && idx2);
-  flags[3] = flags[3] || (fpos && idx2);
-}
-
-// ibits9 = s1 + 3 * s2 in [0, 9) from the 8 corner values (CORNER_OFFSETS
-// order: c000 c100 c110 c010 c001 c101 c111 c011).
-template <typename T>
-__device__ __forceinline__ int interior_code(const T* c) {
-  Coef<T> k;
-  k.c000 = c[0];
-  k.k1 = c[1] - c[0];
-  k.k2 = c[3] - c[0];
-  k.k3 = c[4] - c[0];
-  k.k4 = c[2] - c[0] - k.k1 - k.k2;
-  k.k5 = c[5] - c[0] - k.k1 - k.k3;
-  k.k6 = c[7] - c[0] - k.k2 - k.k3;
-  k.k7 = c[6] - c[0] - k.k1 - k.k2 - k.k3 - k.k4 - k.k5 - k.k6;
-  const T g = guard_of(T(0));
-  k.g = g;
-
-  const T m = k.k3 * k.k7 - k.k5 * k.k6;
-  const T sm = t_abs(k.k3 * k.k7) + t_abs(k.k5 * k.k6);
-  const T A = k.k7 * m;
-  const T B = T(2) * (k.k4 * m);
-  const T C = k.k3 * (k.k4 * k.k4) - k.k4 * (k.k2 * k.k5 + k.k1 * k.k6) +
-              k.k7 * (k.k1 * k.k2);
-  const T errA = g * (t_abs(k.k7) * sm);
-  const T errB = (T(2) * g) * (t_abs(k.k4) * sm);
-  const T errC = g * (t_abs(k.k3 * (k.k4 * k.k4)) + t_abs(k.k4 * (k.k2 * k.k5)) +
-                      t_abs(k.k4 * (k.k1 * k.k6)) + t_abs(k.k7 * (k.k1 * k.k2)));
-
-  const T disc = B * B - T(4) * (A * C);
-  const T errdisc = g * (B * B + T(4) * t_abs(A * C)) +
-                    (T(2) * t_abs(B)) * errB +
-                    T(4) * (t_abs(A) * errC + t_abs(C) * errA);
-  const bool degen = t_abs(disc) <= errdisc;
-  const bool has_roots = degen || (disc > T(0));
-  const T sq = degen ? T(0) : t_sqrt(clamp0(disc));
-  const T dsq = T(2) * sq + t_sqrt(errdisc);
-  const T errsq = errdisc / ((dsq == T(0)) ? T(1) : dsq);
-  // sign(B == +-0) -> +sq: a plain select, not copysign
-  const T q = T(-0.5) * (B + ((B < T(0)) ? -sq : sq));
-  const T errq = T(0.5) * (errB + errsq);
-
-  bool flags[4] = {false, false, false, false};
-  root_flags<T>(k, q, A, errq, errA, has_roots, flags);
-  root_flags<T>(k, C, q, errC, errq, has_roots, flags);
-  const int s1 = flags[0] ? 1 : (flags[1] ? 2 : 0);
-  const int s2 = flags[2] ? 1 : (flags[3] ? 2 : 0);
-  return s1 + 3 * s2;
-}
-
-// Lewiner's face test on a face's corner values, CCW from outside: joined iff
-// (a c - b d) and (a + c - b - d) have opposite signs.
-template <typename T>
-__device__ __forceinline__ int32_t face_joined(T a, T b, T cc, T dd) {
-  return (((a * cc - b * dd) * (a + cc - b - dd)) < T(0)) ? 1 : 0;
-}
-
-// facebits | ibits9 << 6 (core/mc33.py extra_bits); the faces' corners are
-// core/mc_tables.py _FACES.
-template <typename T>
-__device__ __forceinline__ int32_t extra_bits(const T* c) {
-  const int32_t fb = face_joined(c[0], c[3], c[2], c[1])           // z = 0
-                     | (face_joined(c[4], c[5], c[6], c[7]) << 1)  // z = 1
-                     | (face_joined(c[0], c[1], c[5], c[4]) << 2)  // y = 0
-                     | (face_joined(c[3], c[7], c[6], c[2]) << 3)  // y = 1
-                     | (face_joined(c[0], c[4], c[7], c[3]) << 4)  // x = 0
-                     | (face_joined(c[1], c[2], c[6], c[5]) << 5); // x = 1
-  return fb | (interior_code<T>(c) << 6);
-}
 
 __device__ __forceinline__ void load_table(const int32_t* __restrict__ tab_g,
                                            int32_t* tab) {
   for (int i = threadIdx.x; i < NTAB; i += NTHREADS) tab[i] = tab_g[i];
-  __syncthreads();
 }
 
+// The row of cell p of the plane: p / cz (core/mc33.py ext_plan).
+__device__ __forceinline__ unsigned row_of(unsigned p, uint64_t mul,
+                                           int shift) {
+  return (unsigned)(((uint64_t)p * mul) >> shift);
+}
+
+// The four corners of one sample plane, level-shifted: (y, z), (y, z + 1)
+// from row `a`, (y + 1, z), (y + 1, z + 1) from row `b`.
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-classify_ext_kernel(const T* __restrict__ vol, int64_t ncells, int nx, int ny,
-                    int nz, T level, const int32_t* __restrict__ base_case,
+__device__ __forceinline__ void corners(const T* __restrict__ a,
+                                        const T* __restrict__ b, T level,
+                                        T* out) {
+  out[0] = a[0] - level;
+  out[1] = a[1] - level;
+  out[2] = b[0] - level;
+  out[3] = b[1] - level;
+}
+
+// At least 4 blocks an SM in float32, which the compiler's own choice (62
+// registers) meets, and 3 in float64, where the compiler alone takes 116
+// registers and fits 2: at 3 (80 registers) the float64 division and square
+// root sequences have the warps to hide their latency.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, sizeof(T) == 8 ? 3 : 4)
+classify_ext_kernel(const T* __restrict__ vol, int nx, int ny, int nz, int lx,
+                    unsigned nrb, unsigned nslab, uint64_t mul, int shift,
+                    T level, const int32_t* __restrict__ base_case,
                     const int32_t* __restrict__ tab_g,
                     int32_t* __restrict__ ext) {
   __shared__ int32_t tab[NTAB];
   load_table(tab_g, tab);
-  const int64_t idx = (int64_t)blockIdx.x * NTHREADS + threadIdx.x;
-  if (idx >= ncells) return;
-  const int cy = ny - 1, cz = nz - 1;
-  const int64_t per_vol = (int64_t)(nx - 1) * cy * cz;
-  const int64_t b = idx / per_vol;
-  const int64_t r = idx - b * per_vol;
-  const int gz = (int)(r % cz);
-  const int gy = (int)((r / cz) % cy);
-  const int gx = (int)(r / ((int64_t)cz * cy));
-  const int64_t sx = (int64_t)ny * nz, sy = nz;
-  const T* p = vol + ((b * nx + gx) * ny + gy) * (int64_t)nz + gz;
-  // Corner i sits at cell + CORNER_OFFSETS[i] (core/mc_tables.py).
-  T c[8];
-  c[0] = p[0] - level;
-  c[1] = p[sx] - level;
-  c[2] = p[sx + sy] - level;
-  c[3] = p[sy] - level;
-  c[4] = p[1] - level;
-  c[5] = p[sx + 1] - level;
-  c[6] = p[sx + sy + 1] - level;
-  c[7] = p[sy + 1] - level;
-  int32_t cas;
-  if (base_case != nullptr) {
-    cas = base_case[idx];
-  } else {
-    cas = 0;
+  __syncthreads();
+  // Block -> (volume b, slab, row block rb); rb runs fastest.
+  const unsigned bs = blockIdx.x / nrb, rb = blockIdx.x - bs * nrb;
+  const unsigned b = bs / nslab, slab = bs - b * nslab;
+  const unsigned cplane = (unsigned)(ny - 1) * (unsigned)(nz - 1);
+  const unsigned p = rb * NTHREADS + threadIdx.x;
+  if (p >= cplane) return;
+  const int x0 = (int)slab * lx, x1 = min(x0 + lx, nx - 1);
+  const int64_t plane = (int64_t)ny * nz;
+  // The lane's 64-bit bases: sample (y, z) of cell p is p + y.
+  const T* a =
+      vol + ((int64_t)b * nx + x0) * plane + (p + row_of(p, mul, shift));
+  const T* r = a + nz;
+  const int64_t c0 = ((int64_t)b * (nx - 1) + x0) * cplane + p;
+  int32_t* out = ext + c0;
+  const int32_t* bc = base_case == nullptr ? nullptr : base_case + c0;
+  T lo[4], hi[4];
+  corners(a, r, level, lo);
+  corners(a + plane, r + plane, level, hi);
+  for (int x = x0; x < x1; ++x) {
+    a += plane;
+    r += plane;
+    T next[4] = {T(0), T(0), T(0), T(0)};
+    if (x + 1 < x1) corners(a + plane, r + plane, level, next);
+    // Corner i sits at cell + CORNER_OFFSETS[i] (core/mc_tables.py).
+    T c[8];
+    c[0] = lo[0];
+    c[1] = hi[0];
+    c[2] = hi[2];
+    c[3] = lo[2];
+    c[4] = lo[1];
+    c[5] = hi[1];
+    c[6] = hi[3];
+    c[7] = lo[3];
+    int32_t cas;
+    if (bc != nullptr) {
+      cas = *bc;
+      bc += cplane;
+    } else {
+      cas = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) cas |= (c[i] < T(0)) ? (1 << i) : 0;
+      for (int i = 0; i < 8; ++i) cas |= (c[i] < T(0)) ? (1 << i) : 0;
+    }
+    *out = ext_combine(cas, extra_bits<T>(c), tab);
+    out += cplane;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lo[i] = hi[i];
+      hi[i] = next[i];
+    }
   }
-  ext[idx] = ext_combine(cas, extra_bits<T>(c), tab);
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -267,40 +157,61 @@ ext_from_bits_kernel(const int32_t* __restrict__ cas,
                      int32_t* __restrict__ ext) {
   __shared__ int32_t tab[NTAB];
   load_table(tab_g, tab);
+  __syncthreads();
   const int64_t stride = (int64_t)gridDim.x * NTHREADS;
   for (int64_t i = (int64_t)blockIdx.x * NTHREADS + threadIdx.x; i < n;
        i += stride)
     ext[i] = ext_combine(cas[i], extra[i], tab);
 }
 
+int ceil_log2(unsigned v) {
+  int l = 0;
+  while ((1ull << l) < v) ++l;
+  return l;
+}
+
 template <typename T>
-int launch(const void* vol, int64_t nb, int nx, int ny, int nz, double level,
-           const void* base_case, const void* tab, void* ext, void* stream) {
-  const int64_t ncells = nb * (nx - 1) * (int64_t)(ny - 1) * (nz - 1);
-  const int64_t blocks = (ncells + NTHREADS - 1) / NTHREADS;
-  if (blocks < 1 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  classify_ext_kernel<T><<<(unsigned)blocks, NTHREADS, 0,
-                           (cudaStream_t)stream>>>(
-      (const T*)vol, ncells, nx, ny, nz, (T)level, (const int32_t*)base_case,
-      (const int32_t*)tab, (int32_t*)ext);
+int launch(const void* vol, int64_t nb, int nx, int ny, int nz, int lx,
+           unsigned nrb, unsigned nslab, uint64_t mul, int shift,
+           unsigned blocks, double level, const void* base_case,
+           const void* tab, void* ext, void* stream) {
+  // The plan must be ext_plan's for this shape.
+  const int64_t cplane = (int64_t)(ny - 1) * (nz - 1);
+  if (nb < 1 || nx < 2 || ny < 2 || nz < 2 || lx < 1 || cplane >= (1ll << 31) ||
+      nrb != (cplane + NTHREADS - 1) / NTHREADS ||
+      nslab != (unsigned)((nx - 1 + lx - 1) / lx) ||
+      (int64_t)blocks != nb * nslab * (int64_t)nrb ||
+      shift != 31 + ceil_log2((unsigned)(nz - 1)) ||
+      mul != ((1ull << shift) + (nz - 2)) / (uint64_t)(nz - 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  classify_ext_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)vol, nx, ny, nz, lx, nrb, nslab, mul, shift, (T)level,
+      (const int32_t*)base_case, (const int32_t*)tab, (int32_t*)ext);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// nrb, nslab, mul, shift and blocks are core/mc33.py ext_plan's.
 extern "C" int sdf_classify_ext_f32(const void* vol, int64_t nb, int nx,
-                                    int ny, int nz, double level,
+                                    int ny, int nz, int lx, unsigned nrb,
+                                    unsigned nslab, uint64_t mul, int shift,
+                                    unsigned blocks, double level,
                                     const void* base_case, const void* tab,
                                     void* ext, void* stream) {
-  return launch<float>(vol, nb, nx, ny, nz, level, base_case, tab, ext, stream);
+  return launch<float>(vol, nb, nx, ny, nz, lx, nrb, nslab, mul, shift,
+                       blocks, level, base_case, tab, ext, stream);
 }
 
 extern "C" int sdf_classify_ext_f64(const void* vol, int64_t nb, int nx,
-                                    int ny, int nz, double level,
+                                    int ny, int nz, int lx, unsigned nrb,
+                                    unsigned nslab, uint64_t mul, int shift,
+                                    unsigned blocks, double level,
                                     const void* base_case, const void* tab,
                                     void* ext, void* stream) {
-  return launch<double>(vol, nb, nx, ny, nz, level, base_case, tab, ext,
-                        stream);
+  return launch<double>(vol, nb, nx, ny, nz, lx, nrb, nslab, mul, shift,
+                        blocks, level, base_case, tab, ext, stream);
 }
 
 extern "C" int sdf_ext_from_bits(const void* cas, const void* extra, int64_t n,

@@ -51,7 +51,7 @@ def cuda():
            for f in (th.example(sp), zoo.blobby(), _wide_expression())]
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
-           ("classify_ext", _build.source("classify_ext.cu"))]
+           ("classify_ext", mc33.kernel_source())]
     )
     return torch.device("cuda")
 
@@ -153,6 +153,30 @@ def test_ntri_kernel(cuda, variant, ncase):
     assert torch.equal(mc.ntri_of(c, variant), mc._ntri_plain(c, table))
 
 
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("variant", ["fast", "lewiner"])
+def test_ntri_kernel_on_views(cuda, variant, off):
+    """Kernel B3 on contiguous views at int32 offsets 0-3 from a 16-byte
+    boundary, at lengths around its head, vectors and tail and past one
+    grid stride, with codes outside the table: equal to plain, one launch
+    a call (none for an empty view)."""
+    tab = mc.get_tables(variant)
+    table = tab.on(cuda, "ntri")
+    rng = np.random.default_rng(off)
+    base = torch.as_tensor(rng.integers(-7, tab.ncase + 7, 4 * 300000 + 9)
+                           .astype(np.int32), device=cuda)
+    assert base.data_ptr() % 16 == 0
+    for n in (0, 1, 2, 3, 4, 5, 29, 4097, 4 * 270336 + 1, 4 * 300000 + 5):
+        view = base[off: off + n]
+        before = mc.ntri_of.launches
+        got = mc.ntri_of(view, variant)
+        assert mc.ntri_of.launches == before + (1 if n else 0)
+        assert got.shape == view.shape and got.dtype == torch.int32
+        assert torch.equal(got, mc._ntri_plain(view, table))
+    grid = base[off: off + 4 * 1000].view(10, 20, 20)
+    assert torch.equal(mc.ntri_of(grid, variant), mc._ntri_plain(grid, table))
+
+
 def test_ext_from_bits_kernel(cuda):
     """The table-only kernel of classify_ext.cu over the full 256 x 64 x 9
     domain, a ragged tail and cases outside the table."""
@@ -214,6 +238,54 @@ def test_classify_ext_kernel(cuda, dtype):
             assert torch.equal(
                 mc33.classify_ext(vc, base_case=junk),
                 mc33._classify_ext_plain(vc, base_case=junk))
+
+
+# Kernel B2's awkward shapes (nb, nx, ny, nz): axes of 2, primes, rows of
+# 161 and 406 cells, rows of one cell, tile volumes in a batch.
+B2_SHAPES = [(1, 2, 2, 2), (13, 2, 2, 2), (1, 2, 37, 3), (1, 3, 2, 41),
+             (1, 37, 41, 43), (2, 17, 19, 23), (1, 4, 5, 162),
+             (1, 3, 3, 407), (1, 20, 3, 162), (3, 33, 33, 33),
+             (2, 5, 300, 2), (1, 2, 2, 1001)]
+
+
+@pytest.mark.parametrize("shape", B2_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classify_ext_kernel_shapes(cuda, dtype, shape):
+    """Kernel B2 bit-equal to its plain version on shapes whose edges cut
+    its row blocks and slabs everywhere, with base_case absent and given,
+    and with slab lengths forced around the default; one launch a call."""
+    rng = np.random.default_rng(sum(shape))
+    v = rng.standard_normal(shape)
+    v.reshape(-1)[rng.permutation(v.size)[: v.size // 9]] = 0.0
+    vol = torch.as_tensor(v, dtype=dtype, device=cuda)
+    if shape[0] == 1:
+        vol = vol[0]
+    want = mc33._classify_ext_plain(vol, 0.125)
+    before = mc33.classify_ext.launches
+    assert torch.equal(mc33.classify_ext(vol, 0.125), want)
+    assert mc33.classify_ext.launches == before + 1
+    base = mc._cell_cases(vol, 0.125)
+    assert torch.equal(mc33.classify_ext(vol, 0.125, base), want)
+    junk = torch.as_tensor(rng.integers(-3, 260, tuple(base.shape))
+                           .astype(np.int32), device=cuda)
+    assert torch.equal(mc33.classify_ext(vol, 0.125, junk),
+                       mc33._classify_ext_plain(vol, 0.125, junk))
+    for lx in (1, 7, 64):
+        assert torch.equal(mc33._launch(vol, 0.125, base, lx), want), lx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classify_ext_kernel_special_cells(cuda, dtype):
+    """Kernel B2 on _special_volume's NaN, inf, zero and flat cells, in
+    (33, 33, 33)-sample tile volumes cut from it (a batch) and on the whole
+    volume, with base_case absent and given."""
+    v = _special_volume(dtype).to(cuda)
+    tiles = torch.stack([v[:33, :33, :33], v[:33, 8:41, 37:70]])
+    for vol in (v, tiles):
+        want = mc33._classify_ext_plain(vol)
+        assert torch.equal(mc33.classify_ext(vol), want)
+        base = mc._cell_cases(vol)
+        assert torch.equal(mc33.classify_ext(vol, base_case=base), want)
 
 
 @pytest.mark.parametrize("density", [0.0, 1e-3, 0.5, 1.0])

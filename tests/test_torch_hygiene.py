@@ -84,7 +84,7 @@ def test_kernel_sources_are_shipped_and_named():
     # package data ships each of them (*.cu does not match the .cuh)
     assert sorted(os.listdir(csrc)) == [
         "classify_ext.cu", "compact.cu", "eval_classify.cu", "eval_tiles.cu",
-        "ntri.cu", "sdf_point.cuh"]
+        "mc33_cell.cuh", "ntri.cu", "sdf_point.cuh"]
     with open(os.path.join(ROOT, "pyproject.toml")) as fp:
         shipped = fp.read()
     assert '"csrc/*.cu"' in shipped and '"csrc/*.cuh"' in shipped
@@ -106,6 +106,12 @@ def test_kernel_sources_are_shipped_and_named():
     for entry in ("sdf_classify_ext_f32", "sdf_classify_ext_f64",
                   "sdf_ext_from_bits"):
         assert entry in text
+    assert text.count('#include "mc33_cell.cuh"') == 1
+    with open(os.path.join(csrc, "mc33_cell.cuh")) as fp:
+        text += fp.read()
+    for body in ("interior_code", "root_flags", "face_joined", "extra_bits",
+                 "ext_combine", "clamp0"):
+        assert body + "(" in text, body
     assert "fast_math" not in text and "__fmaf" not in text
 
 

@@ -1,13 +1,16 @@
-"""The launch plans of kernels B1 and B4, computed in Python and passed to
-the CUDA kernels, checked on the CPU.
+"""The launch plans of kernels B1, B2, B3 and B4, computed in Python and
+passed to the CUDA kernels, checked on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); here the
 plans they are launched with, and numpy mirrors of the kernels' index
 rules, are held against the plain versions: every sample of B1's grid is
 written by exactly one block and every cell classified exactly once, the
-corner bits read from the blocks' ballot words give the case codes, and
-B4's chunks read each mask slot once, at any alignment, and put every
-index at its rank.  Tolerance: integer outputs, exact.
+corner bits read from the blocks' ballot words give the case codes; B2's
+row blocks classify every cell once from corners loaded at
+CORNER_OFFSETS' samples; B3's head, vectors and tail cover every code
+once at any int32 offset; and B4's chunks read each mask slot once, at
+any alignment, and put every index at its rank.  Tolerance: integer
+outputs, exact.
 """
 
 import re
@@ -18,8 +21,9 @@ import torch
 
 import sdf_torch as sp
 from sdf_torch import _build
-from sdf_torch.core import compact, mc
+from sdf_torch.core import compact, mc, mc33
 from sdf_torch.core import eval_classify as ec
+from sdf_torch.core.mc_tables import CORNER_OFFSETS
 
 
 def _constant(text, name):
@@ -35,6 +39,13 @@ def test_plan_constants_match_the_kernel_sources():
     # _emulate_b4 below runs 256 threads with a granule in each of 4 rows
     assert (_constant(b4, "IDX_THREADS"), _constant(b4, "IDX_ROWS")) == (256, 4)
     assert 256 * 4 * 16 == compact._IDX_CHUNK
+    b2 = _build.source("classify_ext.cu")
+    assert _constant(b2, "NTHREADS") == mc33._EXT_THREADS
+    b3 = _build.source("ntri.cu")
+    assert (_constant(b3, "NTHREADS"), _constant(b3, "BLOCKS_PER_SM")) == (
+        mc._NTRI_THREADS, mc._NTRI_BLOCKS_PER_SM)
+    # the blocks of an SM fill its 2,048 threads
+    assert mc._NTRI_THREADS * mc._NTRI_BLOCKS_PER_SM == 2048
 
 
 def test_wrappers_call_entries_the_sources_define():
@@ -47,6 +58,13 @@ def test_wrappers_call_entries_the_sources_define():
     for name in ("sdf_compact_indices", "sdf_compact_count",
                  "sdf_compact_scatter"):
         assert 'extern "C" int %s(' % name in b4, name
+    b2 = mc33.kernel_source()
+    for name in ("sdf_classify_ext_f32", "sdf_classify_ext_f64",
+                 "sdf_ext_from_bits"):
+        assert 'extern "C" int %s(' % name in b2, name
+    # the per-cell body is spliced in, not included from a path
+    assert '#include "mc33_cell.cuh"' not in b2 and "interior_code(" in b2
+    assert 'extern "C" int sdf_ntri(' in _build.source("ntri.cu")
 
 
 # --- B1: the marching slab ---------------------------------------------------
@@ -259,3 +277,214 @@ def test_indices_plan_counts():
     assert compact.indices_plan(32, 2**24 + 13, 2**22) == (0, 1025, 256)
     _, nchunks, ntail = compact.indices_plan(15, 2**31 - 1, 5000)
     assert nchunks == -(-(2**31 + 14) // 16384) and ntail == 2
+
+
+# --- B2: row blocks of the cell plane, marched along x -----------------------
+
+
+def _emulate_b2(nb, nx, ny, nz, lx):
+    """csrc/classify_ext.cu's index rules in numpy, for ``nb`` volumes of
+    ``nx x ny x nz`` samples: per block, the lanes' cells and
+    rows from the plan's multiplier, and per step the four corners each
+    lane loads from the new sample plane beside the four it carries from
+    the old one.  Returns the writes per cell and the flat sample index of
+    each cell's 8 corners (CORNER_OFFSETS order)."""
+    nrb, nslab, mul, shift, blocks = mc33.ext_plan(nb, nx, ny, nz, lx)
+    nt = mc33._EXT_THREADS
+    cplane, plane = (ny - 1) * (nz - 1), ny * nz
+    row = lambda p: ((np.asarray(p, np.uint64) * np.uint64(mul))
+                     >> np.uint64(shift)).astype(np.int64)
+    ncell = nb * (nx - 1) * cplane
+    writes = np.zeros(ncell, np.int64)
+    corners = np.full((ncell, 8), -1, np.int64)
+    for blk in range(blocks):
+        bs, rb = divmod(blk, nrb)
+        b, slab = divmod(bs, nslab)
+        x0 = slab * lx
+        x1 = min(x0 + lx, nx - 1)
+        p = rb * nt + np.arange(nt)
+        p = p[p < cplane]
+        a = (b * nx + x0) * plane + p + row(p)  # sample (y, z) is p + y
+        r = a + nz
+        lo = [a, a + 1, r, r + 1]  # (y, z) (y, z + 1) (y + 1, z) (y + 1, z + 1)
+        hi = [t + plane for t in lo]
+        for x in range(x0, x1):
+            cell = (b * (nx - 1) + x) * cplane + p
+            writes[cell] += 1
+            corners[cell] = np.stack([lo[0], hi[0], hi[2], lo[2], lo[1],
+                                      hi[1], hi[3], lo[3]], axis=1)
+            lo, hi = hi, [t + plane for t in hi]
+    return writes, corners
+
+
+def _corner_samples(nb, nx, ny, nz):
+    """The flat sample index of each cell's 8 corners, as CORNER_OFFSETS
+    places them."""
+    b, x, y, z = np.meshgrid(np.arange(nb), np.arange(nx - 1),
+                             np.arange(ny - 1), np.arange(nz - 1),
+                             indexing="ij")
+    return np.stack([((b * nx + x + ox) * ny + y + oy) * nz + z + oz
+                     for ox, oy, oz in CORNER_OFFSETS.tolist()],
+                    axis=-1).reshape(-1, 8)
+
+
+B2_SHAPES = [(1, 2, 2, 2), (13, 2, 2, 2), (1, 2, 37, 3), (1, 3, 2, 41),
+             (1, 37, 41, 43), (2, 17, 19, 23), (1, 4, 5, 162),
+             (1, 3, 3, 407), (1, 20, 3, 162), (3, 33, 33, 33),
+             (2, 5, 300, 2), (1, 2, 2, 1001)]
+
+
+@pytest.mark.parametrize("lx", [mc33.EXT_SLAB, 1, 7, 32])
+@pytest.mark.parametrize("shape", B2_SHAPES)
+def test_ext_plan_classifies_every_cell_once(shape, lx):
+    """Axes of 2, primes, rows of 161 and 406 cells, rows of one cell,
+    tile volumes (33^3) in a batch: every cell is written by exactly one
+    lane of one block, and its 8 corners are read from the samples at
+    CORNER_OFFSETS."""
+    writes, corners = _emulate_b2(*shape, lx)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(corners, _corner_samples(*shape))
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 7, 9), (1, 5, 9, 34), (3, 3, 2, 5)])
+def test_marched_corners_give_the_plain_ext_grid(shape):
+    """The corners the mirror loads, through the plain per-cell functions,
+    give the plain version's ext grid (random volume with exact zeros, at
+    a nonzero level, with and without base_case)."""
+    nb, nx, ny, nz = shape
+    rng = np.random.default_rng(nx * ny * nz)
+    vol = rng.standard_normal(shape)
+    vol.reshape(-1)[rng.permutation(vol.size)[: vol.size // 8]] = 0.125
+    vol = torch.as_tensor(vol)
+    _, corners = _emulate_b2(*shape, 2)
+    c = [vol.reshape(-1)[torch.as_tensor(corners[:, i])] - 0.125
+         for i in range(8)]
+    case = torch.zeros(c[0].shape, dtype=torch.int32)
+    for i in range(8):
+        case |= (c[i] < 0).to(torch.int32) << i
+    got = mc33._ext_from_bits_plain(case, mc33.extra_bits(c))
+    cshape = (nb, nx - 1, ny - 1, nz - 1)
+    want = mc33._classify_ext_plain(vol, 0.125)
+    assert torch.equal(got.reshape(cshape), want)
+    base = torch.as_tensor(rng.integers(0, 256, cshape).astype(np.int32))
+    got = mc33._ext_from_bits_plain(base.reshape(-1), mc33.extra_bits(c))
+    assert torch.equal(got.reshape(cshape),
+                       mc33._classify_ext_plain(vol, 0.125, base))
+
+
+@pytest.mark.parametrize("cz", [1, 2, 3, 31, 32, 161, 406, 641, 65537,
+                                2**30 + 1, 2**31 - 1])
+def test_ext_plan_row_multiplier_is_exact(cz):
+    """p * mul >> shift == p // cz for p below 2**31: the plane's edges,
+    the multiples of cz and their neighbours, and random p."""
+    _, _, mul, shift, _ = mc33.ext_plan(1, 2, 2, cz + 1)
+    rng = np.random.default_rng(cz)
+    k = rng.integers(0, (2**31 - 1) // cz + 1, 2000)
+    p = np.concatenate([np.arange(1000), 2**31 - 1 - np.arange(1000),
+                        k * cz, k * cz - 1, k * cz + 1,
+                        rng.integers(0, 2**31, 5000)])
+    p = p[(p >= 0) & (p < 2**31)].astype(np.uint64)
+    got = (p * np.uint64(mul)) >> np.uint64(shift)
+    np.testing.assert_array_equal(got, p // np.uint64(cz))
+    assert mul < 2**33 and shift <= 62
+
+
+def test_ext_plan_counts_and_limits():
+    # the main path's shapes: 162^3, 407^3, 512 tile volumes
+    assert mc33.ext_plan(1, 162, 162, 162, 8)[:2] == (102, 21)
+    assert mc33.ext_plan(1, 407, 407, 407, 16)[0:2] == (644, 26)
+    assert mc33.ext_plan(512, 33, 33, 33, 8)[4] == 512 * 4 * 4
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        mc33.ext_plan(1, 2, 2**16 + 2, 2**15 + 2)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        mc33.ext_plan(2**31, 2, 2, 2)
+
+
+# --- B3: head, 16-byte vectors, tail -----------------------------------------
+
+
+def _emulate_b3(codes, off, table, ncase, sms):
+    """csrc/ntri.cu in numpy, on ``codes`` whose first element sits ``off``
+    int32 past a 16-byte boundary: block 0's lanes do the head and the
+    tail one code each, every lane its vectors two at a time at a grid
+    stride.  Returns (out, reads per code, vector addresses)."""
+    n = len(codes)
+    base = 4096 + 4 * off
+    head, nvec, tail, blocks = mc.ntri_plan(base, n, sms)
+    out = np.full(n, -1, np.int64)
+    reads = np.zeros(n, np.int64)
+    look = lambda c: np.where((c >= 0) & (c < ncase),
+                              table[np.clip(c, 0, ncase - 1)], 0)
+
+    def put(i):
+        reads[i] += 1
+        assert (out[i] == -1).all()
+        out[i] = look(codes[i])
+
+    for t in range(8):  # block 0's head and tail lanes
+        i = (t if t < head else n) if t < 4 else head + 4 * nvec + t - 4
+        if i < n:
+            put(np.array([i]))
+    stride = blocks * mc._NTRI_THREADS
+    v = np.arange(stride)
+    addrs = []
+    while (v < nvec).any():
+        for u in (v, v + stride):
+            u = u[u < nvec]
+            addrs.append(base + 4 * head + 16 * u)
+            put((head + 4 * u[:, None] + np.arange(4)).reshape(-1))
+        v = v + 2 * stride
+    return out, reads, (np.concatenate(addrs) if addrs else np.zeros(0))
+
+
+@pytest.mark.parametrize("variant", ["fast", "lewiner"])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 4 * 7 + 1, 4 * 2048 + 1,
+                               4 * 9000 + 3, 20011])
+def test_ntri_plan_covers_every_code_once(n, off, variant):
+    """At int32 offsets 0-3 from a 16-byte boundary and lengths 0, 1, 3,
+    4k + 1 and past one grid stride: every code is looked up once, every
+    vector access is 16-byte aligned, and the output is the plain
+    lookup's, codes outside the table included."""
+    tab = mc.get_tables(variant)
+    rng = np.random.default_rng(n + off)
+    codes = rng.integers(-3, tab.ncase + 3, n)
+    out, reads, addrs = _emulate_b3(codes, off, tab.ntri_u8, tab.ncase,
+                                    sms=3)
+    assert (reads == 1).all() and (addrs % 16 == 0).all()
+    want = mc._ntri_plain(torch.as_tensor(codes.astype(np.int32)),
+                          torch.as_tensor(tab.ntri))
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+def test_ntri_plan_counts():
+    sms = 132
+    assert mc.ntri_plan(0, 0, sms) == (0, 0, 0, 1)
+    assert mc.ntri_plan(4, 1, sms) == (1, 0, 0, 1)
+    assert mc.ntri_plan(4, 3, sms) == (3, 0, 0, 1)
+    assert mc.ntri_plan(8, 7, sms) == (2, 1, 1, 1)
+    n = 161**3  # the example's cells: the grid fills the card
+    assert mc.ntri_plan(512, n, sms) == (0, n // 4, n % 4, sms * 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mc.ntri_plan(6, 10, sms)
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_ntri_output_takes_the_input_alignment(off):
+    """The wrapper's output starts at the input's address modulo 16, so one
+    head serves both."""
+    case = torch.zeros(100, dtype=torch.int32)[off:]
+    out = mc._like_at(case, case.data_ptr())
+    assert out.shape == case.shape and out.dtype == torch.int32
+    assert (out.data_ptr() - case.data_ptr()) % 16 == 0
+
+
+@pytest.mark.parametrize("variant", ["fast", "lewiner"])
+def test_byte_table_equals_the_int32_table(variant):
+    tab = mc.get_tables(variant)
+    u8 = tab.on("cpu", "ntri_u8")
+    assert u8.dtype == torch.uint8 and u8.numel() % 16 == 0
+    assert u8.numel() - tab.ncase < 16
+    assert torch.equal(u8[: tab.ncase].to(torch.int32),
+                       tab.on("cpu", "ntri"))
+    assert not u8[tab.ncase:].any()
