@@ -43,8 +43,27 @@ Phases, each printing its own lines:
      the device="cpu" run;
  11. a gather-bearing expression (a table lookup defined here) under
      generate(sparse="tiles"): kernel B7 launched, soup bit-equal to the
-     device="cpu" run; and at the defaults, where it goes to the tiles too.
-Phase 3 also holds kernels B6 and B7 against their plain versions on the
+     device="cpu" run; and at the defaults, where the cull alone decides
+     the route (dense with B1 reading the fields below 0.6 culled);
+ 12. a polygon model (a gather: B1 reads its recorded field) at 2**22 in
+     float32 and float64 with sparse=False (B1 once, B7 never, soup
+     bit-equal to the device="cpu" run), at the defaults (the route the cull
+     decides) and with sparse="tiles" (the defaults' canonical soup), warm
+     times and phases; and once at 2**24 in float32 with sparse=False;
+ 13. a mesh SDF: an STL of the example model written by the port, read with
+     Mesh.from_file, Mesh.sdf on the card (timed), examples/mesh.py's
+     cross-hatch remix at 2**22 under the three routes, checked as in 12;
+ 14. a legacy closure that only numpy runs (the host tier) in an
+     expression at 2**20 with sparse=False: B1 reads its field, and the
+     soup equals the device="cpu" run;
+ 15. textures, if this machine has Pillow (and scipy): examples/image.py's
+     model at 2**22 under the three routes, checked as in 12; and, if a
+     DejaVuSans font is found too, examples/text.py's.  What is not run is
+     named on a line of its own.
+Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
+dtypes, on the example's grid) and on a gather-free model of 2D ops, and
+kernel B5 at edge shapes (ragged, all set, capacity below the count,
+misaligned views).  It also holds kernels B6 and B7 against their plain versions on the
 tile lists of phases 9 to 11, and kernels B1 to B5 at the shapes phase 9
 gives them: B1 (in both dtypes), B2, B3 on blobby's whole 2**26 grid (the
 speculative dense pass), B2 to B5 on the 512 tile volumes, the tile-cell
@@ -80,6 +99,7 @@ bit-equal to the default plan's output.
 
 import cProfile
 import hashlib
+import importlib.util
 import json
 import os
 import pstats
@@ -189,6 +209,100 @@ def gather_models(m):
 
 
 GATHER_BOUNDS = ((-1.3, -1.3, -1.3), (1.3, 1.3, 1.3))
+
+
+def polygon_points(seed=0, n=9):
+    """A star-shaped polygon of ``n`` seed-made vertices (tests/
+    torch_helpers.py makes the same ones)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(0.0, 2 * np.pi, n))
+    return np.stack([np.cos(ang), np.sin(ang)], 1) * rng.uniform(0.55, 1.0,
+                                                                 (n, 1))
+
+
+def polygon_model(m):
+    """A seed-made polygon, extruded, unioned with a rounded box: one
+    gather-bearing subtree (the polygon's loop over its edges), one field."""
+    return (m.polygon(polygon_points(0)).extrude(0.6)
+            | m.rounded_box((0.5, 0.5, 1.0), 0.1))
+
+
+def polygon4_model(m):
+    """A 2D circular_array of four polygons, extruded: four fields."""
+    poly = m.polygon(polygon_points(3, 7)).scale(0.45).translate((0.5, 0))
+    return poly.circular_array(4).extrude(0.8) | m.sphere(0.3)
+
+
+def plane_ops_model(m):
+    """Gather-free 2D ops lifted to 3D: every op of it records into the
+    generated kernel body."""
+    return (m.hexagon(0.8).extrude(0.6)
+            | m.rounded_x(0.5, 0.1).revolve(0.6)
+            | m.equilateral_triangle().scale(0.5).extrude(1.2)
+            | m.rounded_rectangle((0.8, 0.5), (0.1, 0.2, 0.05, 0.15))
+            .extrude_to(m.circle(0.3), 1.4).translate((0.2, 0.2, 0.1))
+            | m.vesica(0.6, 0.2).rotate(0.3).revolve(0.2).translate((0, 0, 0.5)))
+
+
+def legacy_model(m):
+    """A reference-style closure that only numpy runs (the host tier),
+    intersected with a box."""
+    import numpy as np
+
+    @m.sdf3
+    def blob(r=0.8):
+        def f(p):
+            a = np.asarray(p, dtype=np.float64)
+            return np.sqrt(np.sum(a * a, axis=1)) - r
+
+        return f
+
+    return blob() & m.box(1.2)
+
+
+def hollowed_with_cross_hatch_ribs(m, f, shell_thickness, rib_width,
+                                   rib_height, rib_spacing):
+    """examples/mesh.py's remix of a mesh SDF, in the package ``m``."""
+    import numpy as np
+
+    d = rib_width / 2
+    rib = m.slab(z0=-d, z1=d).repeat(rib_spacing)
+    rib = rib.rotate(np.pi / 4, m.Y) | rib.rotate(-np.pi / 4, m.Y)
+    rib &= f.erode(rib_height / 2).shell(rib_height)
+    d = shell_thickness
+    return f.erode(d / 2).shell(d) | rib
+
+
+def image_model(m, path="examples/flower.png"):
+    """examples/image.py's model."""
+    w, h = m.measure_image(path)
+    f = m.rounded_box((w * 1.1, h * 1.1, 0.1), 0.05)
+    f |= m.image(path).extrude(1) & m.slab(z0=0, z1=0.075)
+    return f
+
+
+def text_model(m, font):
+    """examples/text.py's model, with the font file ``font``."""
+    w, h = m.measure_text(font, "Hello, world!")
+    f = m.rounded_box((w + 1, h + 1, 0.2), 0.1)
+    f -= m.text(font, "Hello, world!").extrude(1)
+    return f
+
+
+def font_file(name="DejaVuSans.ttf"):
+    """The path of the font file ``name`` in the directories PIL searches on
+    Linux (the XDG data directories' ``fonts``), or None."""
+    homes = [os.environ.get("XDG_DATA_HOME")
+             or os.path.expanduser("~/.local/share")]
+    homes += (os.environ.get("XDG_DATA_DIRS")
+              or "/usr/local/share:/usr/share").split(":")
+    for home in homes:
+        for dirpath, _, files in os.walk(os.path.join(home, "fonts")):
+            if name in files:
+                return os.path.join(dirpath, name)
+    return None
 
 
 def soup_hash(pts):
@@ -766,11 +880,22 @@ def main():
     blobby = zoo.blobby()
     gathers = gather_models(sp)
     gather_nf = {"rotated": 1, "circular": 2}
+    field_models = {"table, rotated": (gathers["rotated"], 1),
+                    "table, circular": (gathers["circular"], 2),
+                    "polygon": (polygon_model(sp), 1),
+                    "polygon x4": (polygon4_model(sp), 4)}
     t0 = time.time()
     libs = _build.build_many([
         ("eval_classify", eval_classify.kernel_source(f)),
         ("eval_classify", eval_classify.kernel_source(zoo.saddle())),
         ("eval_classify", eval_classify.kernel_source(blobby)),
+        ("eval_classify", eval_classify.kernel_source(plane_ops_model(sp))),
+    ] + [
+        ("eval_classify", eval_classify.kernel_source(
+            hybrid.to_kernel_tree(g), nf)) for g, nf in field_models.values()
+    ] + [
+        ("eval_tiles", eval_classify.tile_kernel_source(
+            hybrid.to_kernel_tree(polygon_model(sp)), 1)),
         ("eval_tiles", eval_classify.tile_kernel_source(f)),
         ("eval_tiles", eval_classify.tile_kernel_source(blobby)),
     ] + [
@@ -1019,6 +1144,31 @@ def main():
         check(torch.equal(ik, ip) and int(tk) == int(tp),
               "B4 indices_of on a view at address %% 16 = %d, capacity %d"
               % (view.data_ptr() % 16, cap))
+    # B5 (one pass) at the edge shapes: lengths not a multiple of 32, every
+    # slot set, capacity below the count, an empty mask, and views of the
+    # main-path edge mask off a 16-byte boundary with ragged ends.
+    def b5_equal(m, cap):
+        got = compact.indices_and_ranktable_of(m, cap)
+        want = compact._ranktable_plain(m, cap)
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    for n, dens in ((1, 1.0), (31, 0.5), (33, 1.0), (1000, 1.0),
+                    (70001, 0.5), (2**20 + 7, 1e-3)):
+        m = torch.as_tensor(np.random.default_rng(n).random(n) < dens,
+                            device=dev)
+        cnt = int(m.sum())
+        check(b5_equal(m, cnt + 9) and b5_equal(m, max(1, cnt // 2)),
+              "B5 indices_and_ranktable_of: %d slots, density %g, capacity "
+              "above and below the count, equal to plain" % (n, dens))
+    check(b5_equal(torch.zeros(0, dtype=torch.bool, device=dev), 4),
+          "B5 on an empty mask equal to plain")
+    eflat = emask.reshape(-1)
+    for start, trim in ((1, 0), (5, 7), (15, 31)):
+        view = eflat[start: eflat.numel() - trim]
+        cnt = int(view.sum())
+        check(b5_equal(view, cnt + 3) and b5_equal(view, cnt // 3),
+              "B5 on a view of the edge mask at address %% 16 = %d, %d "
+              "slots, equal to plain" % (view.data_ptr() % 16, view.numel()))
     for m, key, what in ((aflat, "indices_of", "B4"),
                          (emask, "indices_and_ranktable_of", "B5")):
         cnt = int(m.sum())
@@ -1032,6 +1182,7 @@ def main():
             run = lambda: compact.indices_and_ranktable_of(m, cap)
             plain = lambda: compact._ranktable_plain(m, cap)
             lib = None
+            # the mask, 4 bytes an output slot, 8 a 32-slot group
             nbytes = m.numel() + 4 * cap + 8 * (-(-m.numel() // 32))
         got, want = run(), plain()
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
@@ -1360,6 +1511,67 @@ def main():
                     kernel_only_ms=kms,
                 )
         del vk, ck, vp, cp, whole, fields
+
+    # B1 with field inputs on the example's grid: the fields of the
+    # gather-bearing subtrees recorded over the whole grid (the pre-pass,
+    # torch ops), then the kernel reading them at each sample's index.
+    # Held bit-equal to the plain version reading the same fields.  ms is
+    # the kernel alone, plain_ms its plain version, prepass_ms the
+    # recording; the bound counts the field reads.
+    X, Y, Z = grid_axes(f, 2**22, torch.float32)
+    npts = len(X) * len(Y) * len(Z)
+    for label, (g, nf) in field_models.items():
+        tree = hybrid.to_kernel_tree(g)
+        ops_pt = body_op_count(eval_classify.kernel_source(tree, nf))
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            fields = eval_classify.record_fields(g, X, Y, Z, dt, dev)
+            check(len(fields) == nf, "%s records %d field(s)" % (label, nf))
+            vk, ck = eval_classify.eval_and_classify(g, X, Y, Z, dt, dev,
+                                                     fields)
+            vp, cp = eval_classify._eval_classify_plain(tree, X, Y, Z, dt,
+                                                        dev, fields)
+            check(same_bits(vk, vp) and torch.equal(ck, cp),
+                  "B1 with %d field(s), %s %s, on the %s grid: vol and case "
+                  "bit-equal to plain" % (nf, label, name, tuple(vk.shape)))
+            if not label.startswith("polygon"):
+                continue
+            err = max_abs_diff([(vk, vp), (ck, cp)])
+            ms = device_ms(lambda: eval_classify.eval_and_classify(
+                g, X, Y, Z, dt, dev, fields))
+            pms = device_ms(lambda: eval_classify._eval_classify_plain(
+                tree, X, Y, Z, dt, dev, fields), reps=5, warm=1)
+            rms = device_ms(lambda: eval_classify.record_fields(
+                g, X, Y, Z, dt, dev), reps=5, warm=1)
+            ncell = ck.numel()
+            nbytes = (1 + nf) * vk.numel() * vk.element_size() + ncell * 4 \
+                + sum(len(a) for a in (X, Y, Z)) * vk.element_size()
+            b, by = bound_ms(nbytes, ops_pt * npts + 16 * ncell, name)
+            print("  B1 with %d field(s), %s %s: kernel_ms %.4f plain_ms %.4f "
+                  "prepass_ms %.4f bound_ms %.4f (%s; %d ops/point) "
+                  "max_abs_err %g" % (nf, label, name, ms, pms, rms, b, by,
+                                      ops_pt, err))
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                       bound_by=by, library_ms=None, prepass_ms=rms, nf=nf)
+            if label == "polygon" and dt == torch.float32:
+                kernels["eval_classify_fields"] = dict(
+                    name="eval_classify_fields", route="cuda",
+                    source="sdf_torch/csrc/eval_classify.cu",
+                    replaces="sdf_tpu/core/pallas_eval.py:53", **row)
+            elif dt == torch.float32:
+                kernels["eval_classify_fields"]["nf4"] = row
+        del vk, ck, vp, cp, fields
+    # B1 on a gather-free model of 2D ops: every op of it recorded into the
+    # generated body (hexagon, rounded_x, revolve, extrude_to, ...).
+    g = plane_ops_model(sp)
+    check(hybrid.count_gathers(g) == 0, "the 2D-op model has no gather")
+    for dt in (torch.float32, torch.float64):
+        vk, ck = eval_classify.eval_and_classify(g, X, Y, Z, dt, dev)
+        vp, cp = eval_classify._eval_classify_plain(g, X, Y, Z, dt, dev)
+        check(same_bits(vk, vp) and torch.equal(ck, cp),
+              "B1 on the 2D-op model %s: vol and case bit-equal to plain"
+              % str(dt).split(".")[1])
+    del vk, ck, vp, cp
 
     wrappers = {
         "eval_classify": eval_classify.eval_and_classify,
@@ -1703,22 +1915,159 @@ def main():
                           device="cpu", **kw)
         check(np.array_equal(pts, cpu),
               "%s soup bit-equal to the device='cpu' run" % gname)
-        # At the defaults (sparse=True) such an expression goes to the tiles
-        # at once: the dense kernel takes no field inputs.
+        # At the defaults (sparse=True) the cull alone decides, as in the
+        # JAX package: the speculative dense pass runs B1 with the fields,
+        # and the run goes to B7 only at AUTO_TILES_THRESHOLD or more.
         del kw["sparse"]
         auto, counts = drive(gather_models(sp)[gname], **kw)
-        check(engine.LAST_STATS.get("gather_tiles") is True
-              and counts["eval_tiles"] == 1 and counts["eval_classify"] == 0
-              and np.array_equal(auto, pts),
-              "%s at the defaults: routed to kernel B7, the same soup" % gname)
+        st = dict(engine.LAST_STATS)
+        cull = st["skipped"] / st["batches"]
+        routed = cull >= engine.AUTO_TILES_THRESHOLD
+        check("gather_tiles" not in st and ("auto_tiles" in st) == routed
+              and counts["eval_classify"] == 1
+              and counts["eval_tiles"] == int(routed),
+              "%s at the defaults: %.4f of the batches culled, %s"
+              % (gname, cull, "routed to kernel B7" if routed else
+                 "dense, kernel B1 reading the fields"))
+        check(soup_hash(auto) == soup_hash(pts),
+              "%s at the defaults: the canonical soup of sparse='tiles'"
+              % gname)
         del pts, cpu, auto
 
+    def three_routes(label, make, samples, dtype=torch.float32,
+                     compare_cpu=True, keep_launches=False):
+        """generate() of ``make()`` with sparse=False, at the defaults and
+        with sparse="tiles": B1 once with its fields and B7 never under
+        sparse=False, the soup bit-equal to the device="cpu" run; the
+        defaults on the route the cull decides; the tiles giving the
+        defaults' canonical soup.  Returns the sparse=False soup."""
+        name = str(dtype).split(".")[1]
+        kw = dict(samples=samples, dtype=dtype)
+        t0 = time.perf_counter()
+        dense, counts = drive(make(), sparse=False, **kw)
+        st = dict(engine.LAST_STATS)
+        print("  %s %s sparse=False: %d triangles in %.2f s, launches %s"
+              % (label, name, len(dense) // 3, time.perf_counter() - t0,
+                 counts))
+        check(counts["eval_classify"] == 1 and counts["eval_tiles"] == 0
+              and counts["eval_tiles_batched"] == 0 and "record_fields" in st,
+              "%s %s sparse=False: B1 once with its field(s), B7 never"
+              % (label, name))
+        if keep_launches:
+            kernels["eval_classify_fields"]["launches"] = \
+                counts["eval_classify"]
+        check(len(dense) > 0 and bool(np.isfinite(dense).all()),
+              "%s %s: finite vertices" % (label, name))
+        if compare_cpu:
+            t0 = time.time()
+            cpu = sp.generate(make(), verbose=False, device="cpu",
+                              sparse=False, **kw)
+            check(np.array_equal(dense, cpu), "%s %s sparse=False: soup "
+                  "bit-equal to the device='cpu' run (%.1f s)"
+                  % (label, name, time.time() - t0))
+            del cpu
+        auto, counts = drive(make(), **kw)
+        st = dict(engine.LAST_STATS)
+        cull = st["skipped"] / st["batches"]
+        routed = cull >= engine.AUTO_TILES_THRESHOLD
+        check(("auto_tiles" in st) == routed and counts["eval_classify"] == 1
+              and counts["eval_tiles"] == int(routed),
+              "%s %s at the defaults: %.4f of the batches culled, %s"
+              % (label, name, cull, "routed to the tiles" if routed
+                 else "dense with B1 reading the field(s)"))
+        tiles, counts = drive(make(), sparse="tiles", **kw)
+        check(counts["eval_tiles"] == 1 and counts["eval_classify"] == 0,
+              "%s %s sparse='tiles': kernel B7" % (label, name))
+        check(len(tiles) == len(auto) and soup_hash(tiles) == soup_hash(auto),
+              "%s %s: the defaults and sparse='tiles' give one canonical "
+              "soup under the same cull (%d triangles)"
+              % (label, name, len(tiles) // 3))
+        del auto, tiles
+        return dense
+
+    # -- phase 12 --------------------------------------------------------------
+    print("== phase 12: a polygon model (a gather: B1 reads its field) at "
+          "2**22, three routes, both dtypes", flush=True)
+    for dt in (torch.float32, torch.float64):
+        three_routes("polygon 2^22", lambda: polygon_model(sp), 2**22, dt,
+                     keep_launches=dt == torch.float32)
+    report_warm("polygon 2^22 sparse=False", lambda: polygon_model(sp),
+                samples=2**22, sparse=False)
+    report_warm("polygon 2^22 defaults", lambda: polygon_model(sp),
+                samples=2**22)
+    t0 = time.perf_counter()
+    pts, counts = drive(polygon_model(sp), samples=2**24, sparse=False)
+    print("  polygon 2^24 float32 sparse=False: %d triangles in %.2f s, "
+          "launches %s, phases %s" % (len(pts) // 3,
+                                      time.perf_counter() - t0, counts,
+                                      json.dumps(dict(engine.LAST_STATS))))
+    check(counts["eval_classify"] == 1 and counts["eval_tiles"] == 0
+          and len(pts) > 0 and bool(np.isfinite(pts).all()),
+          "polygon 2^24 sparse=False: B1 once with a 64 MB field, finite "
+          "vertices")
+    del pts
+
+    # -- phase 13 --------------------------------------------------------------
+    print("== phase 13: a mesh SDF (Mesh.from_file, Mesh.sdf on the card) in "
+          "examples/mesh.py's remix at 2**22", flush=True)
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    stl_path = os.path.join(work, "example.stl")
+    sp.save(stl_path, example(sp), samples=2**15, verbose=False)
+    mesh = sp.Mesh.from_file(stl_path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msdf = mesh.sdf(voxel_size=0.04, half_width=0.12)
+    torch.cuda.synchronize()
+    print("  Mesh.sdf: %d triangles, grid %s (%d points), %.2f s on the card"
+          % (len(mesh.triangles), msdf.array.shape, msdf.array.size,
+             time.perf_counter() - t0))
+    check(bool(np.isfinite(msdf.array).all()) and (msdf.array < 0).any()
+          and (msdf.array > 0).any(), "the mesh SDF grid is finite, signed")
+    remix = lambda: hollowed_with_cross_hatch_ribs(sp, msdf, 0.08, 0.04,
+                                                   0.08, 0.25)
+    three_routes("mesh remix 2^22", remix, 2**22)
+
+    # -- phase 14 --------------------------------------------------------------
+    print("== phase 14: a legacy closure (numpy only: the host tier) at "
+          "2**20, sparse=False", flush=True)
+    pts, counts = drive(legacy_model(sp), samples=2**20, sparse=False)
+    check(counts["eval_classify"] == 1 and counts["eval_tiles"] == 0
+          and "record_fields" in engine.LAST_STATS,
+          "B1 once, reading the closure's field (%d triangles)"
+          % (len(pts) // 3))
+    cpu = sp.generate(legacy_model(sp), samples=2**20, sparse=False,
+                      verbose=False, device="cpu")
+    check(len(pts) > 0 and np.array_equal(pts, cpu),
+          "legacy closure: soup bit-equal to the device='cpu' run")
+    del pts, cpu
+
+    # -- phase 15 --------------------------------------------------------------
+    print("== phase 15: textures", flush=True)
+    have_pil = all(importlib.util.find_spec(m) is not None
+                   for m in ("PIL", "scipy"))
+    font = font_file() if have_pil else None
+    if have_pil:
+        three_routes("image.py model 2^22", lambda: image_model(sp), 2**22)
+        report_warm("image.py model 2^22 defaults", lambda: image_model(sp),
+                    samples=2**22)
+    if have_pil and font:
+        three_routes("text.py model 2^22", lambda: text_model(sp, font),
+                     2**22)
+    if not (have_pil and font):
+        print("  not run: %s (%s)" % (
+            "image.py's and text.py's models" if not have_pil
+            else "text.py's model",
+            "no Pillow or scipy on this machine" if not have_pil
+            else "no DejaVuSans.ttf in the XDG font directories"))
+
     # -- result ------------------------------------------------------------------
-    order = dense_path + ["eval_tiles_batched", "eval_tiles"]
+    order = dense_path + ["eval_tiles_batched", "eval_tiles",
+                          "eval_classify_fields"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
-            "kernel_only_ms"]
+            "kernel_only_ms", "nf", "nf4"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

@@ -6,10 +6,19 @@ Hopper (``sdf_torch/csrc``).  Entry points run on the card by default
 (``device=None`` means ``"cuda"`` and raises without one); pass
 ``device="cpu"`` to run the kernels' plain PyTorch versions.
 
-Ported so far: the single-device dense ``generate()`` with both
-marching-cubes variants ("lewiner", the default, and "fast"), its memos and
-``checkpoint=``, STL/OBJ/PLY output and the model zoo; see ROADMAP.md for
-what is still to come (the tiled sparse path, 2D ops, multi-GPU).
+Ported: the single-device ``generate()``, ``generate_mesh()`` and
+``save()`` with every ``sparse=`` setting (the dense grid, the tiled sparse
+path and the auto-route between them) and both marching-cubes variants
+("lewiner", the default, and "fast"); the memos and ``checkpoint=``;
+STL/OBJ/PLY output; the model zoo; the whole 3D and 2D DSL with
+``extrude``/``revolve``, text and image textures, mesh SDFs (``Mesh``) and
+reference-style custom closures.  Expressions that need a gather (a
+texture or mesh-grid lookup, a polygon, a closure) run on the card too:
+their fields are recorded ahead and read by the eval kernels.
+
+Still to come (ROADMAP.md): ``sample_slice``/``show_slice`` (A13),
+differentiable meshing and fitting (A12), multi-GPU ``mesh=`` (A14) and
+the generation of the MC33 tables (A17).
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it
@@ -17,6 +26,7 @@ import numpy as np  # the reference's star-export leaks np; scripts rely on it
 from .utils.util import pi, degrees, radians
 
 from .ops import easing as ease
+from .ops import shapes2 as d2
 from .ops import shapes3 as d3
 
 from .ops.shapes3 import (
@@ -71,11 +81,37 @@ from .ops.shapes3 import (
     repeat,
 )
 
+from .ops.shapes2 import (
+    SDF2,
+    circle,
+    line,
+    rectangle,
+    rounded_rectangle,
+    equilateral_triangle,
+    hexagon,
+    rounded_x,
+    polygon,
+    vesica,
+    extrude,
+    extrude_to,
+    revolve,
+)
+
+from .ops.meshsdf import Mesh
+
 from .core.node import sdf2, sdf3, op2, op3, op23, op32
 from .ops import csg as dn
+from .ops import meshsdf as mesh
 from .io import stl
 from .utils import progress, util
 from . import models
+
+from .ops.textures import (
+    measure_image,
+    measure_text,
+    image,
+    text,
+)
 
 from .core.engine import generate, generate_mesh, save
 

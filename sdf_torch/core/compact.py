@@ -10,8 +10,8 @@ recovers the compacted rank of any True slot.
 On a CUDA tensor they launch the kernels of ``csrc/compact.cu`` and never
 sync with the host: the count stays a device tensor.  ``indices_of`` is
 kernel B4, one launch that reads the mask once (a single-pass scan with
-decoupled look-back); ``indices_and_ranktable_of`` is kernel B5, a count
-pass, a device ``cumsum`` and a scatter pass.  On a CPU tensor they run the
+decoupled look-back); ``indices_and_ranktable_of`` is kernel B5, the same
+one launch writing the rank table beside the indices.  On a CPU tensor they run the
 plain versions below, which the tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernels against.  The TPU-only helpers of the
 JAX module (``gather1d``, the 128-lane row tricks) have no counterpart:
@@ -26,8 +26,7 @@ import torch
 
 from .. import _build
 
-_BLOCK = 1024  # slots per block of B5's kernels (csrc/compact.cu BLOCK)
-# Kernel B4's launch plan (csrc/compact.cu): a chunk is IDX_CHUNK slots;
+# Kernels B4 and B5's launch plan (csrc/compact.cu): a chunk is IDX_CHUNK slots;
 # at most _TAIL_BLOCKS blocks, one per _TAIL_SLOTS output words, zero the
 # output's tail.
 _IDX_CHUNK = 256 * 4 * 16
@@ -41,10 +40,9 @@ def _lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.sdf_compact_indices.argtypes = [vp, i64, i32, i32, i32, vp, i64,
                                             vp, vp, vp]
-        lib.sdf_compact_count.argtypes = [vp, i64, vp, vp]
-        lib.sdf_compact_scatter.argtypes = [vp, i64, vp, vp, i64, vp, vp]
-        for fn in (lib.sdf_compact_indices, lib.sdf_compact_count,
-                   lib.sdf_compact_scatter):
+        lib.sdf_compact_ranktable.argtypes = [vp, i64, i32, i32, i32, vp,
+                                              i64, vp, vp, vp, vp]
+        for fn in (lib.sdf_compact_indices, lib.sdf_compact_ranktable):
             fn.restype = ctypes.c_int
         lib._sdf_typed = True
     return lib
@@ -60,7 +58,7 @@ def _check_mask(mask, capacity):
 
 
 def indices_plan(address, n, capacity):
-    """Kernel B4's launch plan for a mask of ``n`` slots at device address
+    """Kernels B4 and B5's launch plan for a mask of ``n`` slots at device address
     ``address``: ``(off, nchunks, ntail)``.  The kernel reads the 16-byte
     granules of the aligned space that holds the mask, so slot ``i`` is
     virtual slot ``i + off``; ``nchunks`` chunks of ``_IDX_CHUNK`` virtual
@@ -99,34 +97,32 @@ def _indices_cuda(mask, capacity):
 
 
 def _ranktable_cuda(mask, capacity):
-    """Kernel B5, both passes; returns ``(idx, table, total)``.  Adds one to
-    ``indices_and_ranktable_of.launches`` when the kernels run (an empty
-    mask launches nothing)."""
+    """Kernel B5: B4's one launch after one memset, also writing the rank
+    table; returns ``(idx, table, total)``.  Adds one to
+    ``indices_and_ranktable_of.launches`` when it launches (an empty mask
+    launches nothing)."""
     _build.require_cuda(mask, "indices_and_ranktable_of")
     dev = mask.device
     n = mask.numel()
-    out = torch.zeros(capacity, dtype=torch.int32, device=dev)
     table = torch.empty(2 * (-(-n // 32)), dtype=torch.int32, device=dev)
     if n == 0:
-        return out, table, torch.zeros((), dtype=torch.int32, device=dev)
+        return (torch.zeros(capacity, dtype=torch.int32, device=dev), table,
+                torch.zeros((), dtype=torch.int32, device=dev))
     lib = _lib()
-    stream = _build.stream_ptr(dev)
-    counts = torch.empty(-(-n // _BLOCK), dtype=torch.int32, device=dev)
+    off, nchunks, ntail = indices_plan(mask.data_ptr(), n, capacity)
+    out = torch.empty(capacity, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(nchunks + 1, dtype=torch.int64, device=dev)
     _build.check(
-        lib.sdf_compact_count(mask.data_ptr(), n, counts.data_ptr(), stream),
-        "compact count",
-    )
-    incl = torch.cumsum(counts, 0, dtype=torch.int32)
-    excl = incl - counts
-    _build.check(
-        lib.sdf_compact_scatter(
-            mask.data_ptr(), n, excl.data_ptr(), out.data_ptr(), capacity,
-            table.data_ptr(), stream,
+        lib.sdf_compact_ranktable(
+            mask.data_ptr(), n, off, nchunks, ntail, out.data_ptr(), capacity,
+            total.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+            _build.stream_ptr(dev),
         ),
-        "compact scatter",
+        "compact ranktable",
     )
     indices_and_ranktable_of.launches += 1
-    return out, table, incl[-1]
+    return out, table, total
 
 
 def _indices_of_plain(mask, capacity):

@@ -6,7 +6,9 @@ the single-device ``generate()``, dense and tiled.
     bounds, as in the JAX package);
   * probe cull: the per-batch ``_skip`` test, evaluated with torch ops on
     the device and fetched together with the counts (speculation);
-  * eval + classify: kernel B1 (``core.eval_classify``);
+  * eval + classify: kernel B1 (``core.eval_classify``), after a torch
+    pre-pass that records the fields of any gather-bearing subtree over
+    the whole grid (``core.hybrid.record_dense_windows``), which B1 reads;
   * under ``mc_variant="lewiner"`` (the default) the 8-bit cases go through
     kernel B2 (``mc33.classify_ext``) and come back as extended codes;
   * count: ``mc.count_indexed`` (kernel B3), then ONE host sync for every
@@ -20,6 +22,8 @@ at least ``AUTO_TILES_THRESHOLD`` of the batches are culled, runs the tiled
 pipeline of ``core.sparse`` instead: only the kept tiles are evaluated
 (kernel B6, or B7 for gather-bearing expressions), then B2, B3, B4 and B5
 on the tile volumes.  A routed run discards its speculative dense result.
+The route follows the cull alone, as in the JAX package: a gather-bearing
+expression stays dense below the threshold, like any other.
 
 Bounds and counts are deterministic in the expression, so both are
 memoized on ``utils.checkpoint.fingerprint``: a repeat call on an
@@ -321,9 +325,16 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
     else:
         skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
 
+    fields = None
+    if hybrid.count_gathers(sdf):
+        # Kernel B1's pre-pass: the gather-bearing subtrees' fields over the
+        # whole grid, on the device, before the kernel that reads them.
+        with _phase("record_fields", stats):
+            fields = eval_classify.record_fields(sdf, X, Y, Z, dtype, device)
     with _phase("eval_classify", stats):
         vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
-                                                    device)
+                                                    device, fields)
+    del fields  # B1 was their one reader: free them before the emit
     if mc_variant != "default":
         # Extend kernel B1's 8-bit codes with the variant's saddle/interior
         # bits (reusing them instead of re-deriving corner signs).
@@ -455,12 +466,11 @@ def generate(
     ``AUTO_TILES_THRESHOLD`` of the batches, discards that and evaluates
     only the kept tiles; ``"tiles"`` goes to the tiles at once; False meshes
     every batch densely.  An expression with gather-marked subtrees
-    (``core.hybrid``) goes to the tiles at once under True as well
-    (``LAST_STATS["gather_tiles"]``).
+    (``core.hybrid``) takes the same routes: kernel B1 on the dense grid
+    and kernel B7 on the tiles read the subtrees' fields, recorded ahead
+    with torch ops.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh=``; and, on
-    the card only, ``sparse=False`` for an expression with gather-marked
-    subtrees (the dense eval kernel takes no field inputs yet).
+    Not ported yet, and raising ``NotImplementedError``: ``mesh=``.
     """
     start = time.time()
     dtype = resolve_dtype(dtype)
@@ -564,13 +574,6 @@ def generate(
                 sdf, X, Y, Z, skip, s, dtype, device, memo_key=mkey,
                 variant=mc_variant, stats=stats,
             )
-
-    if sparse is True and hybrid.count_gathers(sdf):
-        # The dense eval kernel takes no field inputs yet, the per-tile one
-        # does: a gather-bearing expression goes to the tiles at once, on
-        # the card and (so that both give one mesh) on the CPU.
-        sparse = "tiles"
-        stats["gather_tiles"] = True
 
     # mc33_conflicted_cells is counted by the dense pipeline only: a run
     # that goes to the tiles at once leaves the key out of LAST_STATS.

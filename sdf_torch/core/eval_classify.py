@@ -7,8 +7,11 @@ case code.  On the card it launches kernel B1 (``csrc/eval_classify.cu``),
 whose per-point body is generated from the expression here: the
 expression's own torch code runs once on ``Rec`` values, a recorder that
 turns every torch function and Python operator into one C++ statement.
-On the CPU it runs the plain pair ``_eval_volume`` + ``mc._cell_cases``,
-which is also what ``chip_smoke.py`` holds the kernel against.
+The fields of gather-bearing subtrees are recorded ahead over the whole
+grid by ``core.hybrid.record_dense_windows`` and read by the body at the
+sample's own index.  On the CPU it runs the plain pair ``_eval_volume`` +
+``mc._cell_cases`` on the same fields, which is also what
+``chip_smoke.py`` holds the kernel against.
 
 ``eval_tiles_and_classify_batched`` (kernel B6) and
 ``eval_tiles_and_classify`` (kernel B7) do the same for a list of tiles,
@@ -21,8 +24,7 @@ the kernel template ``csrc/eval_tiles.cu`` and share B1's per-point body
 ``mc._cell_cases``.
 
 Ops with no C++ form raise ``NotImplementedError`` naming the op on the
-card; so does a gather-marked subtree on the dense grid (kernel B1 takes
-no field inputs yet).
+card.
 """
 
 from __future__ import annotations
@@ -309,53 +311,58 @@ def params_in_args(sdf):
     return param_count(sdf) <= MAX_ARG_PARAMS
 
 
-def _source(template, sdf, nf=0):
+def _check_fields(nf):
+    if nf > MAX_FIELDS:
+        raise ValueError(
+            "the eval kernels take at most %d field inputs, the expression "
+            "records %d" % (MAX_FIELDS, nf)
+        )
+
+
+def _source(template, sdf, nf=None):
     """The kernel source ``template`` for ``sdf``'s structure: the shared
     per-point piece ``csrc/sdf_point.cuh`` spliced in at its include line,
-    with the recorded body inserted.  ``nf`` is the number of field inputs
-    the placeholders of ``sdf`` (a ``hybrid.to_kernel_tree``) read."""
+    with the recorded body inserted.  The gather-marked subtrees of ``sdf``
+    become placeholders (``hybrid.to_kernel_tree``) whose statements read
+    the field inputs in evaluation order; ``nf``, when given, is the number
+    of fields the caller recorded, and must be the number read."""
+    _check_fields(nf or 0)
+    if hybrid.count_gathers(sdf):
+        sdf = hybrid.to_kernel_tree(sdf)
     em = _Emitter()
     node = _bind(sdf, em)
     p = Points(*[Rec(em, n) for n in ("x", "y", "z")])
     read = lambda k: Rec(em, em.var("f", "F.p[%d][fi]" % k))
     with hybrid.kernel_fields(read) as fields:
         d = node.fn(node.params, p)
-    if fields.taken != nf:
+    if nf is not None and fields.taken != nf:
         raise ValueError(
             "the expression reads %d field inputs, %d were recorded"
             % (fields.taken, nf)
         )
+    _check_fields(fields.taken)
     if isinstance(d, numbers.Number):
         d = Rec(em, _lit(d))
     if not isinstance(d, Rec) or d.shape != () or d.kind != "f":
         raise NotImplementedError("expression did not record to one value")
     body = "\n".join(em.lines + ["  return %s;" % d.expr[()]])
-    params = "#define SDF_NPARAMS %d\n#define SDF_PARAMS_IN_ARGS %d" % (
-        param_count(sdf), params_in_args(sdf))
+    params = ("#define SDF_NPARAMS %d\n#define SDF_PARAMS_IN_ARGS %d\n"
+              "#define SDF_NFIELDS %d" % (param_count(sdf),
+                                          params_in_args(sdf), fields.taken))
     point = _build.source("sdf_point.cuh").replace(_BODY_MARK, body).replace(
         _PARAMS_MARK, params)
     return _build.source(template).replace(_POINT_INCLUDE, point)
 
 
-def kernel_source(sdf):
-    """The CUDA source of kernel B1 for ``sdf``'s structure."""
-    if hybrid.count_gathers(sdf):
-        raise NotImplementedError(
-            "the dense eval kernel takes no field inputs yet: a "
-            "gather-marked subtree meshes on the card through the tiles "
-            "(sparse=True or sparse='tiles'), not with sparse=False"
-        )
-    return _source("eval_classify.cu", sdf)
+def kernel_source(sdf, nf=None):
+    """The CUDA source of kernel B1 for ``sdf``'s structure; a
+    gather-bearing expression's body reads its ``nf`` field inputs."""
+    return _source("eval_classify.cu", sdf, nf)
 
 
-def tile_kernel_source(sdf, nf=0):
-    """The CUDA source of kernels B6 and B7 for ``sdf``'s structure, with
-    ``nf`` field inputs (``sdf`` is then a ``hybrid.to_kernel_tree``)."""
-    if nf > MAX_FIELDS:
-        raise ValueError(
-            "the per-tile kernel takes at most %d field inputs, the "
-            "expression records %d" % (MAX_FIELDS, nf)
-        )
+def tile_kernel_source(sdf, nf=None):
+    """The CUDA source of kernels B6 and B7 for ``sdf``'s structure; a
+    gather-bearing expression's body reads its ``nf`` field inputs."""
     return _source("eval_tiles.cu", sdf, nf)
 
 
@@ -391,9 +398,11 @@ def _axes(X, Y, Z, dtype, device):
                   dtype, device)
 
 
-def _eval_volume(sdf, X, Y, Z, dtype, device):
+def _eval_volume(sdf, X, Y, Z, dtype, device, fields=()):
     """Dense volume evaluation with torch ops on broadcast ``Points``,
-    chunked along x.  X/Y/Z are host float64 axis coordinates."""
+    chunked along x.  X/Y/Z are host float64 axis coordinates; ``fields``
+    are the ``(nx, ny, nz)`` tensors that the placeholders of a
+    ``hybrid.to_kernel_tree`` read."""
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
     sdf_c = cast(sdf, dtype, device)
     nx, ny, nz = len(Xt), len(Yt), len(Zt)
@@ -402,14 +411,14 @@ def _eval_volume(sdf, X, Y, Z, dtype, device):
     for i in range(0, nx, step):
         xs = Xt[i: i + step]
         p = Points(xs[:, None, None], Yt[None, :, None], Zt[None, None, :])
-        vol[i: i + step] = torch.as_tensor(sdf_c(p)).broadcast_to(
-            (len(xs), ny, nz)
-        )
+        with hybrid.kernel_fields(lambda k: fields[k][i: i + step]):
+            d = sdf_c(p)
+        vol[i: i + step] = torch.as_tensor(d).broadcast_to((len(xs), ny, nz))
     return vol
 
 
-def _eval_classify_plain(sdf, X, Y, Z, dtype, device):
-    vol = _eval_volume(sdf, X, Y, Z, dtype, device)
+def _eval_classify_plain(sdf, X, Y, Z, dtype, device, fields=()):
+    vol = _eval_volume(sdf, X, Y, Z, dtype, device, fields)
     return vol, _cell_cases(vol)
 
 
@@ -445,45 +454,73 @@ def slab_evaluations(nx, ny, nz, lx=SLAB):
     return axis(nx, lx) * axis(ny, _PY - 1) * axis(nz, _PZ - 1)
 
 
-def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB):
+def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
+    """Kernel B1 on ``sdf`` (a ``hybrid.to_kernel_tree`` reading
+    ``fields`` when they are given); adds one to
+    ``eval_and_classify.launches`` when it launches."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError("eval_and_classify: dtype must be float32 or float64")
     nx, ny, nz = len(X), len(Y), len(Z)
     if min(nx, ny, nz) < 2:
         raise ValueError("eval_and_classify: every axis needs >= 2 samples")
-    lib = _build.load("eval_classify", kernel_source(sdf))
+    vol = torch.empty((nx, ny, nz), dtype=dtype, device=device)
+    for f in fields:
+        _build.require_cuda(f, "eval_and_classify field")
+        if f.shape != vol.shape or f.dtype != dtype or f.device != vol.device:
+            raise ValueError(
+                "eval_and_classify: a field must be %s of shape %s on %s"
+                % (dtype, tuple(vol.shape), vol.device))
+    lib = _build.load("eval_classify", kernel_source(sdf, len(fields)))
     fn = getattr(lib, "sdf_eval_classify_"
                  + ("f32" if dtype == torch.float32 else "f64"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp, vp, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp, vp]
     fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
     P = _params_arg(sdf, dtype, device)
-    vol = torch.empty((nx, ny, nz), dtype=dtype, device=device)
+    ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
     case = torch.empty((nx - 1, ny - 1, nz - 1), dtype=torch.int32,
                        device=device)
     gz, gy, gx = slab_plan(nx, ny, nz, lx)
     _build.check(
-        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), _address(P), nx, ny,
-           nz, lx, gz, gy, gx, vol.data_ptr(), case.data_ptr(),
-           _build.stream_ptr(vol.device)),
+        fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), _address(P), ptrs,
+           len(fields), nx, ny, nz, lx, gz, gy, gx, vol.data_ptr(),
+           case.data_ptr(), _build.stream_ptr(vol.device)),
         "eval_classify",
     )
     eval_and_classify.launches += 1
     return vol, case
 
 
-def eval_and_classify(sdf, X, Y, Z, dtype, device):
+def record_fields(sdf, X, Y, Z, dtype, device):
+    """Kernel B1's pre-pass: the fields of the gather-bearing subtrees of
+    the uncast expression ``sdf`` over the whole grid ``X x Y x Z``, on
+    ``device`` (``()`` for a gather-free expression)."""
+    if not hybrid.count_gathers(sdf):
+        return ()
+    return hybrid.record_dense(sdf, *_axes(X, Y, Z, dtype, device))
+
+
+def eval_and_classify(sdf, X, Y, Z, dtype, device, fields=None):
     """Evaluate + classify the dense grid ``X x Y x Z`` (host float64 axis
     coordinates) for the uncast expression ``sdf`` in ``dtype``.  Returns
     ``(vol (nx, ny, nz), case (nx-1, ny-1, nz-1) int32)`` on ``device``:
-    kernel B1 on CUDA, the plain pair on the CPU."""
+    kernel B1 on CUDA, the plain pair on the CPU.  The fields of
+    gather-bearing subtrees are ``fields`` when given (``record_fields``
+    of the same call), else recorded here."""
     device = torch.device(device)
-    if device.type == "cpu":
-        return _eval_classify_plain(sdf, X, Y, Z, dtype, device)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError("eval_and_classify: unsupported device %s" % device)
-    return _launch(sdf, X, Y, Z, dtype, device)
+    tree = sdf
+    if hybrid.count_gathers(sdf):
+        if fields is None:
+            fields = record_fields(sdf, X, Y, Z, dtype, device)
+        _check_fields(len(fields))
+        tree = hybrid.to_kernel_tree(sdf)
+    fields = tuple(fields or ())
+    if device.type == "cpu":
+        return _eval_classify_plain(tree, X, Y, Z, dtype, device, fields)
+    return _launch(tree, X, Y, Z, dtype, device, fields=fields)
 
 
 eval_and_classify.launches = 0

@@ -1,9 +1,9 @@
-"""Field inputs for subtrees the generated eval kernel cannot hold
-(counterpart of ``sdf_tpu.core.hybrid``, as far as the per-tile kernel
-with field inputs needs it).
+"""Field inputs for subtrees the generated eval kernels cannot hold
+(counterpart of ``sdf_tpu.core.hybrid``).
 
-Some SDF nodes need gathers (a table or texture lookup by a computed
-index), which have no statement form in the generated per-point body of
+Some SDF nodes need gathers (a texture or mesh-grid lookup by a computed
+index, a polygon's loop over its edges, a legacy closure that runs on the
+host), which have no statement form in the generated per-point body of
 ``core.eval_classify``.  Such an eval function is tagged with
 ``mark_gather``.  Rather than keeping the whole expression off the
 kernel, the tree is split:
@@ -23,12 +23,13 @@ kernel, the tree is split:
 
 Fields and placeholder reads pair up by order: both passes run the same
 tree with the same non-gather code, so child calls happen in the same
-sequence.  ``record_tile_windows`` is the pre-pass of the tiled path, plain
-torch ops outside any kernel.  PyTorch prunes nothing, so the pre-pass
-evaluates the whole tree once on the tiles' points, not only the gather
-subtrees.  The dense kernel takes no field inputs yet, and the
-gather-bearing ops themselves (textures, mesh SDFs, polygons) are not
-ported yet.
+sequence.  The pre-passes are plain torch ops outside any kernel:
+``record_dense_windows`` for the dense kernel B1, once over the whole grid
+in the layout of B1's volume (B1 marches slabs and keeps no per-chunk
+window, so the reference's overlapping z windows become one volume a
+field), and ``record_tile_windows`` for the per-tile kernel B7.  PyTorch
+prunes nothing, so a pre-pass evaluates the whole tree once on its
+points, not only the gather subtrees.
 """
 
 from __future__ import annotations
@@ -154,17 +155,56 @@ def record_tile_windows(rec_tree, Xw, Yw, Zw):
     discarded."""
     ntc, TS = Xw.shape
     shape = (ntc, TS, TS, TS)
+    tape = _record(rec_tree, Points(Xw[:, :, None, None], Yw[:, None, :, None],
+                                    Zw[:, None, None, :]))
+    return tuple(
+        torch.as_tensor(v, dtype=Xw.dtype, device=Xw.device)
+        .broadcast_to(shape).contiguous()
+        for v in tape
+    )
+
+
+def _record(rec_tree, p):
+    """The recorded fields of one evaluation of ``rec_tree`` at ``p``."""
     tok = _TAPE.set([])
     try:
-        rec_tree(Points(Xw[:, :, None, None], Yw[:, None, :, None],
-                        Zw[:, None, None, :]))
-        return tuple(
-            torch.as_tensor(v, dtype=Xw.dtype, device=Xw.device)
-            .broadcast_to(shape).contiguous()
-            for v in _TAPE.get()
-        )
+        rec_tree(p)
+        return list(_TAPE.get())
     finally:
         _TAPE.reset(tok)
+
+
+def record_dense_windows(rec_tree, Xt, Yt, Zt, chunk_points=2**22):
+    """Gather fields for the dense kernel, over the whole grid.
+
+    ``rec_tree`` is a cast recording tree; Xt/Yt/Zt are the axis tensors on
+    its device.  Returns a tuple of contiguous (nx, ny, nz) tensors, one
+    per recorded evaluation in evaluation order, in the layout of the
+    dense volume (x-major, z fastest).  Evaluated in slabs of about
+    ``chunk_points`` samples along x (the plain volume's chunks); the root
+    distance is discarded."""
+    nx, ny, nz = len(Xt), len(Yt), len(Zt)
+    step = max(1, min(nx, -(-chunk_points // (ny * nz))))
+    out = None
+    for i in range(0, nx, step):
+        xs = Xt[i: i + step]
+        tape = _record(rec_tree, Points(xs[:, None, None], Yt[None, :, None],
+                                        Zt[None, None, :]))
+        if out is None:
+            out = [torch.empty((nx, ny, nz), dtype=Xt.dtype, device=Xt.device)
+                   for _ in tape]
+        for o, v in zip(out, tape):
+            o[i: i + step] = torch.as_tensor(
+                v, dtype=Xt.dtype, device=Xt.device).broadcast_to(
+                    (len(xs), ny, nz))
+    return tuple(out or ())
+
+
+def record_dense(sdf, Xt, Yt, Zt):
+    """The pre-pass of the dense kernel: the recorded fields of the uncast
+    expression ``sdf`` over the grid of the axis tensors Xt/Yt/Zt."""
+    rec = cast(to_recording_tree(sdf), Xt.dtype, Xt.device)
+    return record_dense_windows(rec, Xt, Yt, Zt)
 
 
 def record_tiles(sdf, Xt, Yt, Zt, tiles, tile):

@@ -302,6 +302,9 @@ class _Node:
         ops = type(self)._registry
         if name in ops:
             return functools.partial(ops[name], self)
+        return self._getattr_fallthrough(name)
+
+    def _getattr_fallthrough(self, name):
         raise AttributeError(name)
 
     def __or__(self, other):
@@ -318,6 +321,14 @@ class SDF3(_Node):
     """A 3D signed distance field: points ``(N, 3)`` -> distances ``(N, 1)``."""
 
     _registry = {}
+
+    def _getattr_fallthrough(self, name):
+        # Attributes of the eval function: mesh SDFs hang their sampled grid
+        # there (``fn.array``, ``fn.xyz``, ...).  ``fn`` itself is never
+        # looked up here, so a node still being built cannot recurse.
+        if name == "fn" or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self.fn, name)
 
     def generate(self, *args, **kwargs):
         from . import engine
@@ -346,12 +357,97 @@ def node_k(node):
     return getattr(node, "_k", None) if isinstance(node, _Node) else None
 
 
+# Exceptions that say "this closure does not work in this calling
+# convention", as opposed to a bug in the closure (NameError etc.), which
+# propagates with its own traceback.  PyTorch reports shape and device
+# mismatches as RuntimeError.
+_TIER_ERRORS = (TypeError, ValueError, AttributeError, IndexError,
+                RuntimeError)
+
+
+def _wrap_legacy(f, dim):
+    """Adapt a reference-style closure ``f(points_array) -> distances``
+    (the counterpart of ``sdf_tpu.core.node._wrap_legacy``).
+
+    Three tiers, chosen at the first evaluation and memoized:
+
+      0. call ``f`` with the ``Points`` themselves (closures that stick to
+         the arithmetic and indexing ``Points`` supports);
+      1. call it with an ``(N, dim)`` tensor of the points, on their device;
+      2. a plain host call: the points as float64 numpy, the closure run
+         there (a verbatim numpy closure), and its result uploaded to the
+         points' device -- the counterpart of ``jax.pure_callback``.
+
+    Before tier 2 is taken the closure runs once on ``np.zeros((2, dim))``,
+    so a real bug in it surfaces at once with its own traceback.  The
+    closure captures its parameters where ``cast`` cannot reach them, so
+    its output is cast to the points' dtype.  It is marked as a gather
+    (``core.hybrid``): its field is always recorded ahead with torch ops
+    and never enters a generated kernel body.
+    """
+    from .hybrid import mark_gather
+
+    state = {"tier": None}
+
+    def host(arr, shape):
+        a = arr.detach().cpu().numpy().astype(np.float64)
+        d = np.asarray(f(a), dtype=np.float64).reshape(-1)
+        return torch.from_numpy(d).to(device=arr.device,
+                                      dtype=arr.dtype).reshape(shape)
+
+    def fn(q, p):
+        if not isinstance(p, Points):
+            return f(p)
+        comps = [c for c in p.c if isinstance(c, torch.Tensor)]
+        out_dtype = functools.reduce(torch.promote_types,
+                                     [c.dtype for c in comps])
+        device = comps[0].device
+
+        def finish(d):
+            # A numpy result means the closure left torch (possible on CPU
+            # tensors only): take the host tier, as on the card.
+            if not isinstance(d, (torch.Tensor, int, float)):
+                raise TypeError("the closure did not return a tensor")
+            return torch.as_tensor(d, device=device).to(out_dtype)
+
+        if state["tier"] in (None, 0):
+            try:
+                out = finish(f(p))
+                state["tier"] = 0
+                return out
+            except _TIER_ERRORS:
+                # A tier-0 closure can fail in a new shape context: retry
+                # the materialized tier rather than trusting the memo.
+                state["tier"] = None
+        shape = p.bshape
+        arr = torch.stack(
+            [torch.as_tensor(c).broadcast_to(shape).reshape(-1) for c in p.c],
+            dim=-1)
+        if state["tier"] in (None, 1):
+            try:
+                out = finish(f(arr)).reshape(shape)
+                state["tier"] = 1
+                return out
+            except _TIER_ERRORS:
+                pass
+            f(np.zeros((2, dim)))
+            state["tier"] = 2
+        return host(arr, shape).to(out_dtype)
+
+    fn.legacy_closure = True
+    return mark_gather(fn)
+
+
 def _make_ctor(cls, builder):
     @functools.wraps(builder)
     def wrapper(*args, **kwargs):
         out = builder(*args, **kwargs)
         if isinstance(out, _Node):
             return out
+        if callable(out):
+            # A reference-style constructor returning a bare closure: no
+            # parameter leaves, the closure captures its values.
+            return cls(_wrap_legacy(out, 2 if cls is SDF2 else 3), {})
         fn, params = out
         return cls(fn, params)
 

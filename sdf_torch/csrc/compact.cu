@@ -8,11 +8,11 @@
 // card a thread writes its own slots' indices at their ranks.
 //
 // Bound on the card: memory traffic -- the mask read once (1 byte a slot),
-// each kept index written once (4 bytes), the zero tail of the output and,
-// for B5, the table (8 bytes per 32 slots) -- against 3.35 TB/s.  A few
-// MB: a kernel of a few microseconds, whose time is latency (one read of
-// the mask, the chain of block prefixes, the scatter) unless every launch
-// keeps enough bytes in flight.
+// each kept index written once (4 bytes a True slot, and the zero tail of
+// the output up to capacity) and, for B5, the table (8 bytes a 32-slot
+// group) -- against 3.35 TB/s.  A few MB: a kernel of a few microseconds,
+// whose time is latency (one read of the mask, the chain of chunk
+// prefixes, the scatter) unless every launch keeps enough bytes in flight.
 //
 // B4, `indices_kernel`: one launch, one read of the mask, a single-pass
 // scan with decoupled look-back (Merrill & Garland, "Single-pass Parallel
@@ -44,11 +44,23 @@
 //     has started by then, so the wait ends), then fill the tail with a
 //     grid stride.  Every output word is written exactly once.
 //
-// B5, `count_kernel` + `scatter_kernel` (not yet redesigned): a count pass
-// ballots each block of 1024 slots; the wrapper scans the block counts with
-// torch.cumsum; a scatter pass ballots again, writes each True slot's index
-// at offset + rank and, per warp, the group's (exclusive offset, ballot
-// word) pair, the interleaved layout of compact._interleave_table.
+// B5, the same kernel instantiated with TABLE: the same launch, the same one
+// read of the mask, and beside the indices the rank table that
+// compact.rank_lookup reads, the interleaved int32 pairs [offset(g),
+// word(g)] of each 32-slot group g of the mask (compact._ranktable_plain's
+// layout): the count of True slots before the group, and the group's
+// True slots as the bits of one word.
+//   * A lane holds 16 slots (a granule), not one, so the word is not one
+//     ballot: the lane that holds the group's first granule takes the next
+//     two lanes' granule bits with two shuffles and funnel-shifts the
+//     three by `off` (a group starts `off` slots into its first granule of
+//     the aligned space).  Lane 30's third granule is the first of the next
+//     warp, row or chunk, which it reads again from the mask.
+//   * The offset is the chunk's exclusive prefix plus the in-chunk prefix
+//     at the granule (both there already for the scatter) plus the True
+//     slots of the granule before the group's first.
+//   * Bits past the end of the mask are 0, so the last group of a mask
+//     whose length is not a multiple of 32 has only its valid bits set.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -149,10 +161,25 @@ __device__ __forceinline__ int look_back(const unsigned long long* status,
   }
 }
 
+// The table pair of 32-slot group g = j / 2, written by the lane that holds
+// its first granule j (even): group g is mask slots [32g, 32g + 32), which
+// are virtual slots [16j + off, 16j + off + 32): bits off..15 of granule j,
+// all of granule j + 1 and bits 0..off-1 of granule j + 2.  `excl` is the
+// count of True slots before granule j.
+__device__ __forceinline__ void table_pair(int32_t* __restrict__ table,
+                                           int64_t g, int off, unsigned b0,
+                                           unsigned b1, unsigned b2, int excl) {
+  const unsigned word =
+      (b0 >> off) | (b1 << (16 - off)) | (off ? b2 << (32 - off) : 0u);
+  table[2 * g] = excl + __popc(b0 & ((1u << off) - 1u));
+  table[2 * g + 1] = (int32_t)word;
+}
+
+template <bool TABLE>
 __global__ void __launch_bounds__(IDX_THREADS)
 indices_kernel(const uint8_t* __restrict__ mask, int64_t n, int off,
                int nchunks, int32_t* __restrict__ out, int64_t capacity,
-               int32_t* __restrict__ count,
+               int32_t* __restrict__ count, int32_t* __restrict__ table,
                unsigned long long* __restrict__ status,
                unsigned* __restrict__ ticket) {
   __shared__ int s_chunk;
@@ -240,85 +267,40 @@ indices_kernel(const uint8_t* __restrict__ mask, int64_t n, int off,
   __syncthreads();
 
   const int base = s_base;
+  const int64_t ngroups = (n + 31) >> 5;
 #pragma unroll
   for (int k = 0; k < IDX_ROWS; ++k) {
-    int64_t r = (int64_t)base + s_warp[k * IDX_WARPS + warp] + incl[k] - cnt[k];
-    const int32_t i0 =
-        (int32_t)(v0 + (int64_t)(k * IDX_THREADS + tid) * 16 - off);
+    const int64_t v = v0 + (int64_t)(k * IDX_THREADS + tid) * 16;
+    const int excl = base + s_warp[k * IDX_WARPS + warp] + incl[k] - cnt[k];
+    if (TABLE) {
+      // The two granules after this lane's: lanes + 1 and + 2 of the warp
+      // (consecutive lanes hold consecutive granules); lane 30's second
+      // one is the next warp's first, read again from the mask.
+      const unsigned b1 = __shfl_down_sync(FULL, bits[k], 1);
+      unsigned b2 = __shfl_down_sync(FULL, bits[k], 2);
+      const int64_t g = v >> 5;  // v is 16 j, the group's first slot 32 g
+      if ((lane & 1) == 0 && g < ngroups) {
+        if (lane == 30 && off != 0) b2 = load_granule(mask, n, off, v + 32);
+        table_pair(table, g, off, bits[k], b1, b2, excl);
+      }
+    }
+    int64_t r = excl;
+    const int32_t i0 = (int32_t)(v - off);
     for (unsigned m = bits[k]; m != 0 && r < capacity; m &= m - 1, ++r) {
       out[r] = i0 + (__ffs(m) - 1);
     }
   }
 }
 
-// --- B5 -----------------------------------------------------------------------
-
-constexpr int BLOCK = 1024;  // slots (= threads) per block, 32 warps
-
-__global__ void __launch_bounds__(BLOCK)
-count_kernel(const uint8_t* __restrict__ mask, int64_t n,
-             int32_t* __restrict__ counts) {
-  __shared__ int wc[32];
-  const int64_t i = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const unsigned w = __ballot_sync(FULL, m);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) wc[warp] = __popc(w);
-  __syncthreads();
-  if (warp == 0) {
-    int c = wc[lane];
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(FULL, c, off);
-    if (lane == 0) counts[blockIdx.x] = c;
-  }
-}
-
-__global__ void __launch_bounds__(BLOCK)
-scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
-               const int32_t* __restrict__ block_excl,
-               int32_t* __restrict__ out, int64_t capacity,
-               int32_t* __restrict__ table) {
-  __shared__ int wc[32];
-  const int64_t i = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const unsigned w = __ballot_sync(FULL, m);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) wc[warp] = __popc(w);
-  __syncthreads();
-  if (warp == 0) {
-    const int v = wc[lane];
-    int incl = v;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += t;
-    }
-    wc[lane] = incl - v;
-  }
-  __syncthreads();
-  const int base = block_excl[blockIdx.x] + wc[warp];
-  if (table != nullptr && lane == 0 && i < n) {
-    const int64_t g = i >> 5;
-    table[2 * g] = base;
-    table[2 * g + 1] = (int32_t)w;
-  }
-  if (m) {
-    const int r = base + __popc(w & ((1u << lane) - 1u));
-    if (r < capacity) out[r] = (int32_t)i;
-  }
-}
-
-}  // namespace
-
-// B4.  `off` is the mask's address mod 16, `nchunks` = ceil((off + n) /
-// IDX_CHUNK), `ntail` the zero-fill blocks (0 when capacity is 0);
-// `scratch` holds nchunks + 1 words: the status words, then the ticket.
-extern "C" int sdf_compact_indices(const void* mask, int64_t n, int off,
-                                   int nchunks, int ntail, void* out,
-                                   int64_t capacity, void* count,
-                                   void* scratch, void* stream) {
+// One launch of indices_kernel after one memset of its scratch.
+template <bool TABLE>
+int compact_launch(const void* mask, int64_t n, int off, int nchunks,
+                   int ntail, void* out, int64_t capacity, void* count,
+                   void* table, void* scratch, void* stream) {
   if (n <= 0 || n >= (int64_t(1) << 31) || off < 0 || off > 15 ||
       nchunks != (int)((off + n + IDX_CHUNK - 1) / IDX_CHUNK) || ntail < 0 ||
       (ntail == 0) != (capacity == 0) ||
-      ((uintptr_t)mask & 15u) != (unsigned)off) {
+      ((uintptr_t)mask & 15u) != (unsigned)off || (TABLE && !table)) {
     return (int)cudaErrorInvalidValue;
   }
   unsigned long long* status = (unsigned long long*)scratch;
@@ -326,28 +308,33 @@ extern "C" int sdf_compact_indices(const void* mask, int64_t n, int off,
       cudaMemsetAsync(status, 0, (size_t)(nchunks + 1) * sizeof(*status),
                       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  indices_kernel<<<(unsigned)(nchunks + ntail), IDX_THREADS, 0,
-                   (cudaStream_t)stream>>>(
+  indices_kernel<TABLE><<<(unsigned)(nchunks + ntail), IDX_THREADS, 0,
+                          (cudaStream_t)stream>>>(
       (const uint8_t*)mask, n, off, nchunks, (int32_t*)out, capacity,
-      (int32_t*)count, status, (unsigned*)(status + nchunks));
+      (int32_t*)count, (int32_t*)table, status,
+      (unsigned*)(status + nchunks));
   return (int)cudaGetLastError();
 }
 
-extern "C" int sdf_compact_count(const void* mask, int64_t n, void* counts,
-                                 void* stream) {
-  const int64_t blocks = (n + BLOCK - 1) / BLOCK;
-  count_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, n, (int32_t*)counts);
-  return (int)cudaGetLastError();
+}  // namespace
+
+// B4 and B5.  `off` is the mask's address mod 16, `nchunks` = ceil((off + n)
+// / IDX_CHUNK), `ntail` the zero-fill blocks (0 when capacity is 0);
+// `scratch` holds nchunks + 1 words: the status words, then the ticket.
+// B5's `table` holds 2 * ceil(n / 32) int32.
+extern "C" int sdf_compact_indices(const void* mask, int64_t n, int off,
+                                   int nchunks, int ntail, void* out,
+                                   int64_t capacity, void* count,
+                                   void* scratch, void* stream) {
+  return compact_launch<false>(mask, n, off, nchunks, ntail, out, capacity,
+                               count, nullptr, scratch, stream);
 }
 
-extern "C" int sdf_compact_scatter(const void* mask, int64_t n,
-                                   const void* block_excl, void* out,
-                                   int64_t capacity, void* table,
-                                   void* stream) {
-  const int64_t blocks = (n + BLOCK - 1) / BLOCK;
-  scatter_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, n, (const int32_t*)block_excl, (int32_t*)out,
-      capacity, (int32_t*)table);
-  return (int)cudaGetLastError();
+extern "C" int sdf_compact_ranktable(const void* mask, int64_t n, int off,
+                                     int nchunks, int ntail, void* out,
+                                     int64_t capacity, void* count,
+                                     void* table, void* scratch,
+                                     void* stream) {
+  return compact_launch<true>(mask, n, off, nchunks, ntail, out, capacity,
+                              count, table, scratch, stream);
 }

@@ -3,10 +3,13 @@
 // Replaces: sdf_tpu/core/pallas_eval.py `_kernel` (launched by
 // `_pallas_invoke`), the TPU kernel that evaluates the expression tree over
 // a z-chunk of the grid and writes the per-cell corner-sign case codes,
-// carrying the chunk's last z plane through its sequential grid.
+// carrying the chunk's last z plane through its sequential grid, with
+// `nvols` field inputs: the outputs of subtrees the body cannot hold (a
+// gather), computed ahead of the kernel and handed in as per-block windows.
 //
 // Bound on the card: the volume and case writes (nx*ny*nz*sizeof(T) +
-// (nx-1)(ny-1)(nz-1)*4 bytes) against 3.35 TB/s, or the expression's
+// (nx-1)(ny-1)(nz-1)*4 bytes, plus nf * nx*ny*nz*sizeof(T) bytes of field
+// reads) against 3.35 TB/s, or the expression's
 // arithmetic (ops per point * points) against the float32/float64 peak,
 // whichever is larger; wide expression trees are arithmetic bound.  Built
 // with -fmad=false and IEEE sqrt and division, each recorded op takes at
@@ -22,6 +25,15 @@
 //     body, and splices that text in at the #include line below.
 //   * Parameters travel by value in the kernel's arguments (the constant
 //     bank; sdf_point.cuh `Params`), so a leaf is an instruction operand.
+//   * Field inputs (sdf_point.cuh `Fields`, up to MAX_FIELDS pointers, also
+//     by value) are whole-grid volumes in the layout of `vol`, recorded by
+//     core/hybrid.py record_dense_windows.  The body reads field k as
+//     `F.p[k][fi]` with `fi` the linear index at which this sample's
+//     distance is stored, so the reads coalesce as the stores do.  A halo
+//     sample is evaluated by two blocks and its fields read twice; every
+//     other sample reads each field once.  The source's SDF_NFIELDS (the
+//     body's field count) must equal the wrapper's `nf`; with none the
+//     kernel takes no field argument, the gather-free kernel of before.
 //   * A block owns a patch of CY x CZ = 15 x 31 cells in y and z and a slab
 //     of `lx` cell planes along x; blockIdx.z is the slab, and the loop over
 //     its sample planes takes the place of the TPU kernel's sequential grid.
@@ -65,11 +77,16 @@ template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 eval_classify_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                      const T* __restrict__ Z,
-                     const __grid_constant__ Params<T> P, int nx, int ny,
-                     int nz, int lx, T* __restrict__ vol,
+                     const __grid_constant__ Params<T> P,
+#if SDF_NFIELDS
+                     const __grid_constant__ Fields<T> F,
+#endif
+                     int nx, int ny, int nz, int lx, T* __restrict__ vol,
                      int32_t* __restrict__ cas) {
   __shared__ unsigned ring[3][PY];
-  const Fields<T> none = {};
+#if !SDF_NFIELDS
+  const Fields<T> F = {};  // a body that reads no field: no such argument
+#endif
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int z0 = blockIdx.x * CZ, y0 = blockIdx.y * CY, x0 = blockIdx.z * lx;
   const int x1 = min(x0 + lx, nx - 1);  // the slab's last sample plane
@@ -97,7 +114,11 @@ eval_classify_kernel(const T* __restrict__ X, const T* __restrict__ Y,
       const int row = warp + r * WARPS, gy = y0 + row;
       bool inside = false;
       if (gy < ny && zin) {  // gy is uniform across the warp
-        const T v = sdf_point<T>(xv, r ? yvb : yva, zv, P, none, 0);
+        // The sample's index in `vol` is its index in every field; it is
+        // formed at each use, so a body that reads no field keeps no
+        // register for it across the evaluation.
+        const T v =
+            sdf_point<T>(xv, r ? yvb : yva, zv, P, F, vrow + r * vstep);
         inside = v < T(0);
         if (xown && zown && (row < CY || gy == ny - 1)) {
           vol[vrow + r * vstep] = v;
@@ -137,18 +158,23 @@ eval_classify_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 }
 
 template <typename T>
-int launch(const void* X, const void* Y, const void* Z, const void* P, int nx,
-           int ny, int nz, int lx, int gz, int gy, int gx, void* vol,
-           void* cas, void* stream) {
-  if (nx < 2 || ny < 2 || nz < 2 || lx < 1 ||
+int launch(const void* X, const void* Y, const void* Z, const void* P,
+           const void* const* fields, int nf, int nx, int ny, int nz, int lx,
+           int gz, int gy, int gx, void* vol, void* cas, void* stream) {
+  if (nx < 2 || ny < 2 || nz < 2 || lx < 1 || nf != SDF_NFIELDS ||
       gz != (nz - 1 + CZ - 1) / CZ || gy != (ny - 1 + CY - 1) / CY ||
       gx != (nx - 1 + lx - 1) / lx || gy > 65535 || gx > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  Fields<T> F = {};
+  for (int k = 0; k < nf; ++k) F.p[k] = (const T*)fields[k];
   eval_classify_kernel<T><<<dim3(gz, gy, gx), NTHREADS, 0,
                             (cudaStream_t)stream>>>(
-      (const T*)X, (const T*)Y, (const T*)Z, params_from<T>(P), nx, ny, nz, lx,
-      (T*)vol, (int32_t*)cas);
+      (const T*)X, (const T*)Y, (const T*)Z, params_from<T>(P),
+#if SDF_NFIELDS
+      F,
+#endif
+      nx, ny, nz, lx, (T*)vol, (int32_t*)cas);
   return (int)cudaGetLastError();
 }
 
@@ -156,21 +182,24 @@ int launch(const void* X, const void* Y, const void* Z, const void* P, int nx,
 
 // `lx` and the grid (gz, gy, gx) are eval_classify.slab_plan's; `P` is the
 // host address of the parameter values, or their device address when the
-// source reads them from device memory (SDF_PARAMS_IN_ARGS 0).
+// source reads them from device memory (SDF_PARAMS_IN_ARGS 0); `fields`
+// holds `nf` device pointers to (nx, ny, nz) volumes of T.
 extern "C" int sdf_eval_classify_f32(const void* X, const void* Y,
-                                     const void* Z, const void* P, int nx,
+                                     const void* Z, const void* P,
+                                     const void* const* fields, int nf, int nx,
                                      int ny, int nz, int lx, int gz, int gy,
                                      int gx, void* vol, void* cas,
                                      void* stream) {
-  return launch<float>(X, Y, Z, P, nx, ny, nz, lx, gz, gy, gx, vol, cas,
-                       stream);
+  return launch<float>(X, Y, Z, P, fields, nf, nx, ny, nz, lx, gz, gy, gx,
+                       vol, cas, stream);
 }
 
 extern "C" int sdf_eval_classify_f64(const void* X, const void* Y,
-                                     const void* Z, const void* P, int nx,
+                                     const void* Z, const void* P,
+                                     const void* const* fields, int nf, int nx,
                                      int ny, int nz, int lx, int gz, int gy,
                                      int gx, void* vol, void* cas,
                                      void* stream) {
-  return launch<double>(X, Y, Z, P, nx, ny, nz, lx, gz, gy, gx, vol, cas,
-                        stream);
+  return launch<double>(X, Y, Z, P, fields, nf, nx, ny, nz, lx, gz, gy, gx,
+                        vol, cas, stream);
 }

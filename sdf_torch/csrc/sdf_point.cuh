@@ -90,7 +90,7 @@ Params<T> params_from(const void* P) {
 }
 
 // Field inputs of a kernel, passed by value (core/eval_classify.py holds
-// the same limit and raises above it).
+// the same limit and raises above it); the body reads SDF_NFIELDS of them.
 constexpr int MAX_FIELDS = 32;
 template <typename T>
 struct Fields {

@@ -157,16 +157,38 @@ def _host_leaves(leaves):
     ]
 
 
+def _legacy_closures(tree):
+    """Whether the expression holds a reference-style closure
+    (``node._wrap_legacy``)."""
+    if isinstance(tree, _Node):
+        return (getattr(tree.fn, "legacy_closure", False)
+                or _legacy_closures(tree.params) or _legacy_closures(tree._k))
+    if isinstance(tree, dict):
+        return any(_legacy_closures(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_legacy_closures(v) for v in tree)
+    return False
+
+
 def fingerprint(sdf, X, Y, Z, sparse):
     """Stable hash of the run configuration: grid + full expression.
 
     Covers the grid coordinates, the extras ``sparse`` (any repr-able
-    value), the expression tree (structure + parameter leaves, ``.k()``
-    tags included) AND all closure-captured statics of every node's eval
-    function -- a model that differs only in a static (e.g.
-    ``circular_array(4)`` vs ``circular_array(12)``) never hits the same
-    entry.
+    value), the expression tree (structure + parameter leaves -- texture
+    arrays, mesh grids and polygon vertices among them -- and ``.k()``
+    tags) AND all closure-captured statics of every node's eval function
+    -- a model that differs only in a static (e.g. ``circular_array(4)``
+    vs ``circular_array(12)``) never hits the same entry.
+
+    A reference-style closure has no leaves: what it computes may hang on
+    anything it reaches, so it has no fingerprint and this raises
+    ``ValueError`` (the engine's memos then recompute).
     """
+    if _legacy_closures(sdf):
+        raise ValueError(
+            "an expression with a reference-style closure has no "
+            "fingerprint: the closure captures its values where the "
+            "parameter tree cannot see them")
     h = hashlib.sha256()
     for a in (X, Y, Z):
         _feed_array(h, a)

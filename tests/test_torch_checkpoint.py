@@ -114,3 +114,38 @@ def test_load_refuses_a_foreign_model(tmp_path):
     ckpt.save(path, _fp(sp.sphere(1)), pts)
     assert ckpt.load(path, _fp(sp.sphere(1))) is not None
     assert ckpt.load(path, _fp(sp.sphere(1.5))) is None
+
+
+def _gather_leaf_models(other=False):
+    """The gather-bearing models' array leaves (polygon vertices, a texture
+    array, a mesh grid); with ``other``, other values of the same shapes
+    and the same statics."""
+    img = np.zeros((24, 32), np.uint8)
+    img[6:18, 8:20 + 4 * other] = 255
+    pts, tris = th.sphere_mesh_points()
+    s = 0.98 if other else 1.0
+    return {
+        "polygon": sp.polygon(th.polygon_points(0) * s),
+        "texture": sp.image(img, width=1.0),
+        "mesh": sp.Mesh(pts * s, tris).sdf(voxel_size=0.25, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("name", ["polygon", "texture", "mesh"])
+def test_gather_leaves_key_the_memos(name):
+    """Texture arrays, mesh grids and polygon vertices are parameter leaves:
+    a rebuilt model shares its fingerprint and structure key, other values
+    of the same shape change the fingerprint and not the structure key."""
+    a = _gather_leaf_models()[name]
+    b = _gather_leaf_models()[name]
+    c = _gather_leaf_models(other=True)[name]
+    assert _fp(a) == _fp(b) and _fp(a) != _fp(c)
+    assert ckpt.structure_key(a) == ckpt.structure_key(b)
+    assert ckpt.structure_key(a) == ckpt.structure_key(c)
+
+
+def test_legacy_closure_has_no_fingerprint():
+    f = th.legacy_closure(sp) | sp.sphere(0.5)
+    with pytest.raises(ValueError, match="no fingerprint"):
+        _fp(f)
+    assert sp.core.engine._fingerprint_or_none(f, X, Y, Z, "x") is None

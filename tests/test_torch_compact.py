@@ -133,8 +133,8 @@ class _FakeLib:
 @pytest.mark.parametrize("n", [0, 70])
 def test_compact_counts_only_launches(monkeypatch, n, with_table):
     """The CUDA path counts a launch exactly when it calls the kernels: an
-    empty mask returns before launching and counts none; B4 is one launch,
-    B5 its two passes.  Driven on the CPU with a stand-in library (the
+    empty mask returns before launching and counts none; B4 and B5 are one
+    launch each.  Driven on the CPU with a stand-in library (the
     device checks are bypassed)."""
     lib = _FakeLib()
     monkeypatch.setattr(tc, "_lib", lambda: lib)
@@ -148,9 +148,39 @@ def test_compact_counts_only_launches(monkeypatch, n, with_table):
     if n == 0:
         assert lib.calls == [] and wrapper.launches == before
     elif with_table:
-        assert lib.calls == ["sdf_compact_count", "sdf_compact_scatter"]
+        assert lib.calls == ["sdf_compact_ranktable"]
         assert wrapper.launches == before + 1
     else:
         assert lib.calls == ["sdf_compact_indices"]
         assert wrapper.launches == before + 1
     wrapper.launches = before
+
+
+@pytest.mark.parametrize("n, density, cap_share", [
+    (1, 1.0, 2.0), (31, 0.5, 2.0), (33, 1.0, 0.5), (64, 1.0, 1.0),
+    (95, 0.3, 0.25), (1000, 1.0, 0.5), (4097, 0.0, 1.0)])
+def test_ranktable_plain_at_the_edge_shapes(n, density, cap_share):
+    """Kernel B5's plain version, and so its table layout, against the JAX
+    package's (its non-TPU branch) where a mask's length is not a multiple
+    of 32, where every slot is True, and with capacity below the count:
+    indices, count and table equal, the last group holding its valid bits
+    only."""
+    m = _mask(n, density, seed=n + 11)
+    cap = max(1, int(cap_share * max(1, int(m.sum()))))
+    want_idx, want_tab, wtot = jc.indices_and_ranktable_of(jnp.asarray(m), cap)
+    got_idx, got_tab, gtot = tc.indices_and_ranktable_of(torch.as_tensor(m),
+                                                         cap)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    assert int(gtot) == int(wtot) == int(m.sum())
+    gt = got_tab.numpy().view(np.uint32)
+    np.testing.assert_array_equal(gt, np.asarray(want_tab).astype(np.uint32)
+                                  [: len(gt)])
+    last = n - 32 * (len(gt) // 2 - 1)
+    assert gt[-1] >> last == 0 if last < 32 else True
+
+
+def test_ranktable_of_an_empty_mask():
+    idx, table, total = tc.indices_and_ranktable_of(
+        torch.zeros(0, dtype=torch.bool), 4)
+    assert idx.tolist() == [0, 0, 0, 0] and table.numel() == 0
+    assert int(total) == 0 and total.dim() == 0

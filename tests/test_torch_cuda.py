@@ -369,7 +369,7 @@ def test_indices_of_back_to_back_on_one_stream(cuda):
 
 
 def test_ranktable_kernel_over_many_blocks(cuda):
-    """Kernel B5, unchanged, on 2^24 + 13 slots: bit-equal to plain."""
+    """Kernel B5 (one pass) on 2^24 + 13 slots: bit-equal to plain."""
     for kind, m in _b4_masks(2**24 + 13).items():
         m = torch.as_tensor(m, device=cuda)
         cap = int(m.sum()) + 3
@@ -652,20 +652,140 @@ def test_tile_shapes_through_the_other_kernels(cuda, dtype, tile):
 
 
 def test_gather_expression_at_the_defaults_runs_the_per_tile_kernel(cuda):
-    """generate() at its defaults on a gather-bearing expression goes to the
-    tiles (kernel B7) and equals the device='cpu' run; sparse=False, the one
-    cull mode that needs the dense kernel, says what is missing."""
+    """generate() at its defaults on a gather-bearing expression routes by
+    the cull alone, as the JAX package does: below AUTO_TILES_THRESHOLD it
+    stays dense and kernel B1 reads the fields; with the threshold under
+    the cull it goes to the tiles and runs the per-tile kernel B7.  Either
+    way the soup equals the device='cpu' run; sparse=False runs B1 with
+    fields."""
     b7 = eval_classify.eval_tiles_and_classify
+    b1 = eval_classify.eval_and_classify
     # the rotated model: circular_array takes sin and cos on the device,
     # which differ from the CPU's by an ulp and can flip a table index
     g = th.gather_models(sp)["rotated"]
     kw = dict(bounds=((-1.3,) * 3, (1.3,) * 3), samples=2**15, batch_size=8,
               verbose=False)
-    before = b7.launches, eval_classify.eval_and_classify.launches
+    before = b7.launches, b1.launches
     got = g.generate(**kw)
-    assert engine.LAST_STATS["gather_tiles"] is True
-    assert (b7.launches, eval_classify.eval_and_classify.launches) == (
-        before[0] + 1, before[1])
+    assert "gather_tiles" not in engine.LAST_STATS
+    routed = "auto_tiles" in engine.LAST_STATS
+    assert (b7.launches, b1.launches) == (before[0] + routed, before[1] + 1)
     np.testing.assert_array_equal(got, g.generate(device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="field inputs"):
-        g.generate(sparse=False, **kw)
+    threshold = engine.AUTO_TILES_THRESHOLD
+    engine.AUTO_TILES_THRESHOLD = 0.0
+    engine._COUNTS_MEMO.clear()  # the dense run's counts would stop the route
+    try:
+        before = b7.launches
+        got = g.generate(**kw)
+        assert "auto_tiles" in engine.LAST_STATS
+        assert b7.launches == before + 1
+        np.testing.assert_array_equal(got, g.generate(device="cpu", **kw))
+    finally:
+        engine.AUTO_TILES_THRESHOLD = threshold
+        engine._COUNTS_MEMO.clear()
+    before = b7.launches, b1.launches
+    dense = g.generate(sparse=False, **kw)
+    assert (b7.launches, b1.launches) == (before[0], before[1] + 1)
+    np.testing.assert_array_equal(dense, g.generate(sparse=False,
+                                                    device="cpu", **kw))
+
+
+# --- kernel B1 with field inputs, kernel B5 in one pass ----------------------
+
+
+def _field_model(nf):
+    """A gather-bearing model that records ``nf`` fields: a 2D
+    circular_array of ``nf`` polygons (each a gather occurrence), extruded."""
+    poly = sp.polygon(th.polygon_points(3, 7)).scale(0.45).translate((0.5, 0))
+    shape = poly.circular_array(nf) if nf > 1 else poly
+    return shape.extrude(0.8) | sp.sphere(0.3)
+
+
+@pytest.mark.parametrize("nf", [1, 2, eval_classify.MAX_FIELDS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eval_classify_kernel_with_fields(cuda, dtype, nf):
+    """Kernel B1 reading nf recorded fields, bit-equal to its plain version
+    on the same fields and to the expression evaluated whole with torch
+    ops, on a grid whose edges cut the launch plan."""
+    f = _field_model(nf)
+    X = np.linspace(-1.1, 1.1, 37)
+    Y = np.linspace(-1.0, 1.2, 41)
+    Z = np.linspace(-0.6, 0.6, 70)
+    fields = eval_classify.record_fields(f, X, Y, Z, dtype, cuda)
+    assert len(fields) == nf
+    before = eval_classify.eval_and_classify.launches
+    vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, dtype, cuda, fields)
+    assert eval_classify.eval_and_classify.launches == before + 1
+    vp, cp = eval_classify._eval_classify_plain(
+        hybrid.to_kernel_tree(f), X, Y, Z, dtype, cuda, fields)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
+    whole, _ = eval_classify._eval_classify_plain(f, X, Y, Z, dtype, cuda)
+    assert _same_bits(vk, whole)
+
+
+def test_eval_classify_kernel_refuses_too_many_fields(cuda):
+    f = _field_model(eval_classify.MAX_FIELDS + 1)
+    X = np.linspace(-1, 1, 9)
+    with pytest.raises(ValueError, match="at most %d field inputs"
+                       % eval_classify.MAX_FIELDS):
+        eval_classify.eval_and_classify(f, X, X, X, torch.float32, cuda)
+
+
+@pytest.mark.parametrize("start", [1, 3, 8, 15])
+def test_ranktable_on_a_misaligned_view(cuda, start):
+    """A bool view whose first byte is not 16-byte aligned, with ragged
+    ends (n mod 32 != 0): kernel B5's table and indices equal plain, with
+    capacity above and below the count."""
+    base = torch.as_tensor(_b4_masks(70001)["0.5"], device=cuda)
+    for end in (base.numel(), base.numel() - 5, start + 40, start + 1):
+        m = base[start:end]
+        assert m.data_ptr() % 16 != 0
+        for cap in (int(m.sum()) + 9, int(m.sum()) // 2):
+            before = compact.indices_and_ranktable_of.launches
+            got = compact.indices_and_ranktable_of(m, cap)
+            assert compact.indices_and_ranktable_of.launches == before + 1
+            want = compact._ranktable_plain(m, cap)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _gather_generate_models(tmp_path):
+    pts, tris = th.sphere_mesh_points()
+    path = str(tmp_path / "ico.stl")
+    sp.stl.write_binary_stl(path, pts[tris].reshape(-1, 3))
+    mesh = sp.Mesh.from_file(path).sdf(voxel_size=0.1, half_width=0.2)
+    return {
+        "polygon": th.polygon_model(sp),
+        "mesh": mesh.erode(0.05).shell(0.1) & sp.slab(y0=0),
+        "legacy": th.legacy_closure(sp) & sp.box(1.2),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sparse_false_on_gather_models_runs_the_dense_kernel(cuda, dtype,
+                                                             tmp_path):
+    """sparse=False on the polygon, mesh and legacy models launches B1 once
+    (with its fields) and B7 not at all, and the soup is bit-equal to the
+    device='cpu' run."""
+    b7 = eval_classify.eval_tiles_and_classify
+    b1 = eval_classify.eval_and_classify
+    for name, f in _gather_generate_models(tmp_path).items():
+        kw = dict(samples=2**15, verbose=False, sparse=False, dtype=dtype)
+        before = b1.launches, b7.launches
+        got = f.generate(**kw)
+        assert (b1.launches, b7.launches) == (before[0] + 1, before[1]), name
+        assert "record_fields" in engine.LAST_STATS, name
+        assert len(got), name
+        np.testing.assert_array_equal(got, f.generate(device="cpu", **kw),
+                                      err_msg=name)
+
+
+def test_gather_generate_syncs_as_before(cuda):
+    """A gather-bearing model (the polygon: torch ops only) waits for the
+    card as a gather-free one does: 2 syncs dense, 1 on a memo hit."""
+    kw = dict(samples=2**15, verbose=False, sparse=False)
+    th.polygon_model(sp).generate(**kw)
+    engine._COUNTS_MEMO.clear()
+    msgs = _count_syncs(lambda: th.polygon_model(sp).generate(**kw))
+    assert len(msgs) == 2, msgs
+    msgs = _count_syncs(lambda: th.polygon_model(sp).generate(**kw))
+    assert len(msgs) == 1, msgs

@@ -1,6 +1,12 @@
 """Dense eval + classify (kernel B1): the port's plain version against the
 JAX package's Pallas kernel in interpret mode, on odd-sized grids.
 
+The gather-bearing models (a polygon, an image texture, a mesh SDF on the
+JAX package's own grid, a legacy closure, a 2D circular_array of polygons
+with two fields) run the port's plain B1 with the fields recorded by
+``hybrid.record_dense_windows`` against the Pallas kernel reading the
+reference's per-block windows.
+
 Tolerances:
   * case codes: bit-equal.
   * volumes: |diff| <= 8 eps of the dtype (values and coordinates are of
@@ -13,6 +19,9 @@ Tolerances:
     expression evaluated eagerly the port is bit-equal (test_torch_ops.py).
 """
 
+import os
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,16 +31,55 @@ import sdf_tpu as st
 import sdf_torch as sp
 from sdf_tpu.core import pallas_eval
 from sdf_tpu.core.node import cast as jcast
+from sdf_torch.core.node import cast as tcast
 from sdf_torch.core import eval_classify as ec
+from sdf_torch.core import hybrid
 from sdf_torch.core import mc as tmc
 
 import torch_helpers as th
+
+def _icosphere_sdf(m):
+    pts, tris = th.sphere_mesh_points()
+    kw = dict(voxel_size=0.15, half_width=0.3)
+    if m is sp:
+        kw["device"] = "cpu"
+    return m.Mesh(pts, tris).scaled(0.9).sdf(**kw)
+
+
+_MESH = {}
+
+
+def _mesh_model(m):
+    """A mesh SDF of the icosphere, hollowed as in examples/mesh.py.  The
+    port's tree carries the JAX package's grid (load_leaves), so B1's field
+    path is compared on identical grids."""
+    from sdf_torch.core.node import load_leaves
+
+    if "jax" not in _MESH:
+        _MESH["jax"] = _icosphere_sdf(st)
+        _MESH["torch"] = load_leaves(_icosphere_sdf(sp), [
+            np.asarray(x) for x in jax.tree_util.tree_leaves(_MESH["jax"])])
+    f = _MESH["jax" if m is st else "torch"]
+    return f.erode(0.1).shell(0.1) & m.slab(y0=-0.2)
+
 
 MODELS = {
     "example": th.example,
     "smooth": lambda m: m.sphere(0.6).union(m.box(0.8).translate((0.2, 0, 0)), k=0.2),
     "rounded": lambda m: m.rounded_cylinder(0.5, 0.1, 1.0).orient(m.Y),
+    # gather-bearing: fields recorded ahead, read by the kernel
+    "polygon": th.polygon_model,
+    "texture": lambda m: m.image(
+        os.path.join(os.path.dirname(__file__), "..", "examples",
+                     "flower.png"), width=1.8, pixels=2**12).extrude(0.8)
+    | m.sphere(0.4),
+    "mesh": _mesh_model,
+    "legacy": lambda m: th.legacy_closure(m) & m.box(1.5),
+    "polygon_x2": lambda m: m.polygon(th.polygon_points(3, 7)).scale(
+        0.5).translate((0.4, 0)).circular_array(2).extrude(0.9),
 }
+GATHERS = {"polygon": 1, "texture": 1, "mesh": 1, "legacy": 1,
+           "polygon_x2": 2}
 
 
 def _grid():
@@ -49,7 +97,13 @@ def test_plain_matches_pallas_interpret(model, dtype):
     vj, cj = pallas_eval.eval_and_classify(
         jcast(build(st), jd), X, Y, Z, jd, bz=4, interpret=True
     )
-    vt, ct = ec.eval_and_classify(build(sp), X, Y, Z, td, "cpu")
+    ft = build(sp)
+    assert hybrid.count_gathers(ft) == GATHERS.get(model, 0)
+    vt, ct = ec.eval_and_classify(ft, X, Y, Z, td, "cpu")
+    if model in GATHERS:
+        fields = ec.record_fields(ft, X, Y, Z, td, "cpu")
+        assert len(fields) == GATHERS[model]
+        assert all(f.shape == (17, 19, 23) for f in fields)
     assert vt.shape == (17, 19, 23) and ct.shape == (16, 18, 22)
     assert vt.dtype == td and ct.dtype == torch.int32
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
@@ -189,3 +243,66 @@ def test_parameter_form_follows_the_leaf_count(nspheres):
                       X[None, None, :],
                       ec._flat_params(f, torch.float64, "cpu").numpy())
     np.testing.assert_array_equal(np.broadcast_to(got, vt.shape), vt.numpy())
+
+
+@pytest.mark.parametrize("model", ["legacy", "polygon", "polygon_x2"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_record_dense_windows_matches_reference(model, dtype):
+    """The port's whole-grid fields (x-major, z fastest) equal the
+    reference's overlapping per-block z windows, de-overlapped: bit-equal
+    for the legacy closure (float64 numpy on the host in both), within
+    8 eps for the polygon, whose loop the reference compiles (FMAs)."""
+    from sdf_tpu.core import hybrid as jhybrid
+
+    X, Y, Z = _grid()
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    bz, nz = 4, len(Z)
+    nchunks = -(-nz // bz)
+    Zp = np.concatenate([Z, np.full(nchunks * bz + 1 - nz, Z[-1])])
+    widx = np.arange(nchunks)[:, None] * bz + np.arange(bz + 1)[None, :]
+    wins = jhybrid.record_dense_windows(
+        jhybrid.to_recording_tree(jcast(MODELS[model](st), jd)),
+        jnp.asarray(X, jd), jnp.asarray(Y, jd), jnp.asarray(Zp[widx], jd))
+    ft = MODELS[model](sp)
+    got = hybrid.record_dense_windows(
+        tcast(hybrid.to_recording_tree(ft), td, "cpu"),
+        *ec._axes(X, Y, Z, td, "cpu"), chunk_points=5 * 19 * 23)
+    assert len(got) == len(wins) == GATHERS[model]
+    eps = np.finfo(dtype).eps
+    for g, w in zip(got, wins):
+        w = np.asarray(w)
+        whole = np.concatenate([w[:, :bz].reshape(-1, *w.shape[2:]),
+                                w[-1, bz:]])[:nz]
+        want = np.moveaxis(whole, 0, 2)
+        assert g.shape == want.shape and g.is_contiguous()
+        if model == "legacy":
+            np.testing.assert_array_equal(g.numpy(), want)
+        else:
+            np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=8 * eps)
+
+
+def test_generated_body_reads_fields_at_the_sample_index():
+    """For a gather-bearing model the generated B1 body reads each field at
+    the sample's own index (``F.p[k][fi]``), and interpreted with numpy on
+    the recorded fields it equals the plain volume bit for bit."""
+    X, Y, Z = _grid()
+    f = MODELS["polygon_x2"](sp)
+    tree = hybrid.to_kernel_tree(f)
+    src = ec.kernel_source(tree, 2)
+    assert "F.p[0][fi]" in src and "F.p[1][fi]" in src
+    assert "#define SDF_NFIELDS 2\n" in src
+    assert "#define SDF_NFIELDS 0\n" in ec.kernel_source(th.example(sp))
+    with pytest.raises(ValueError, match="reads 2 field inputs, 1 were"):
+        ec.kernel_source(tree, 1)
+    with pytest.raises(ValueError, match="at most %d" % ec.MAX_FIELDS):
+        ec.kernel_source(tree, ec.MAX_FIELDS + 1)
+    for td in (torch.float32, torch.float64):
+        fields = ec.record_fields(f, X, Y, Z, td, "cpu")
+        vt, _ = ec.eval_and_classify(f, X, Y, Z, td, "cpu", fields)
+        P = ec._flat_params(tree, td, "cpu").numpy()
+        x, y, z = (a.astype(P.dtype) for a in (X, Y, Z))
+        got = th.run_body(src, x[:, None, None], y[None, :, None],
+                          z[None, None, :], P,
+                          fields=[fl.numpy() for fl in fields])
+        np.testing.assert_array_equal(np.broadcast_to(got, vt.shape),
+                                      vt.numpy())

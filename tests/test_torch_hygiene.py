@@ -23,6 +23,10 @@ KERNEL_MODULES = [
     "sdf_torch.utils.checkpoint",
     "sdf_torch.io.meshfmt",
     "sdf_torch.models.zoo",
+    "sdf_torch.core.node",
+    "sdf_torch.ops.shapes2",
+    "sdf_torch.ops.textures",
+    "sdf_torch.ops.meshsdf",
 ]
 
 
@@ -35,6 +39,8 @@ def test_import_leaves_jax_out():
         "import sdf_torch.utils.checkpoint, sdf_torch.io.meshfmt\n"
         "import sdf_torch.models.zoo\n"
         "import sdf_torch.core.sparse, sdf_torch.core.hybrid\n"
+        "import sdf_torch.ops.shapes2, sdf_torch.ops.textures\n"
+        "import sdf_torch.ops.meshsdf\n"
         "sdf_torch.core.mc.get_tables('lewiner')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'sdf_tpu'))]\n"
@@ -61,7 +67,9 @@ def test_sources_name_no_jax():
     assert {"chip_smoke.py", "sdf_torch/core/mc33.py",
             "sdf_torch/core/mc33_build.py", "sdf_torch/utils/checkpoint.py",
             "sdf_torch/io/meshfmt.py", "sdf_torch/models/zoo.py",
-            "sdf_torch/core/sparse.py", "sdf_torch/core/hybrid.py"} <= names
+            "sdf_torch/core/sparse.py", "sdf_torch/core/hybrid.py",
+            "sdf_torch/ops/shapes2.py", "sdf_torch/ops/textures.py",
+            "sdf_torch/ops/meshsdf.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:
@@ -286,3 +294,37 @@ def test_build_many_starts_one_nvcc_per_distinct_source(monkeypatch, tmp_path):
     # a second request finds the libraries and compiles nothing
     _build.build_many(items)
     assert len(log.read_text().splitlines()) == 2
+
+
+def test_texture_libraries_load_lazily():
+    """PIL and scipy are imported inside the texture functions, as in the
+    JAX package: importing the port (every name of it) loads neither."""
+    code = (
+        "import sys\n"
+        "from sdf_torch import *\n"
+        "import sdf_torch.ops.textures, sdf_torch.ops.meshsdf\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('PIL', 'scipy')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_one_pass_ranktable_and_no_try_around_a_launch():
+    """Kernel B5's wrapper launches one kernel and scans nothing with a
+    library call; neither compaction nor eval wrapper catches an error
+    from a launch (so nothing gives way to a plain version)."""
+    import inspect
+
+    from sdf_torch.core import compact, eval_classify
+
+    src = inspect.getsource(compact._ranktable_cuda)
+    assert "cumsum" not in src and src.count("lib.sdf_compact_") == 1
+    for mod in (compact, eval_classify):
+        assert "except" not in inspect.getsource(mod), mod.__name__
+    from sdf_torch import _build
+
+    assert "count_kernel" not in _build.source("compact.cu")

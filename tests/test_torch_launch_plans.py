@@ -55,8 +55,7 @@ def test_wrappers_call_entries_the_sources_define():
         name = "sdf_eval_classify_" + dt
         assert 'extern "C" int %s(' % name in b1, name
     b4 = _build.source("compact.cu")
-    for name in ("sdf_compact_indices", "sdf_compact_count",
-                 "sdf_compact_scatter"):
+    for name in ("sdf_compact_indices", "sdf_compact_ranktable"):
         assert 'extern "C" int %s(' % name in b4, name
     b2 = mc33.kernel_source()
     for name in ("sdf_classify_ext_f32", "sdf_classify_ext_f64",
@@ -203,11 +202,24 @@ def test_ballot_words_give_the_case_codes(shape, lx):
 # --- B4: one-pass compaction -------------------------------------------------
 
 
-def _emulate_b4(mask, off, capacity):
+def _granule_bits(mask, v, off):
+    """The True bits of the granule at virtual slot ``v`` (load_granule)."""
+    i, bits = v - off, 0
+    for s in range(max(i, 0), min(i + 16, len(mask))):
+        if mask[s]:
+            bits |= 1 << (s - i)
+    return bits
+
+
+def _emulate_b4(mask, off, capacity, table=None):
     """csrc/compact.cu indices_kernel in numpy, on a mask whose first byte
     sits ``off`` bytes past a 16-byte boundary: the chunks' granules, the
     per-warp and per-block scans in their order, the prefix of the earlier
-    chunks, and the scatter; returns (out, count, slots read)."""
+    chunks, and the scatter; returns (out, count, slots read).  With
+    ``table`` (an int64 array of 2 * ceil(n / 32) entries, -1 = unwritten)
+    also B5's table writes: the even lanes' pairs from their granule, the
+    next lane's and the one after (lane 30 reads that one from the mask
+    again), each entry written exactly once."""
     n = len(mask)
     _, nchunks, ntail = compact.indices_plan(off, n, capacity)
     threads, rows = 256, 4
@@ -235,7 +247,19 @@ def _emulate_b4(mask, off, capacity):
                 w, lane = divmod(t, 32)
                 r = prefix + warp_excl[k, w] + warp_incl[k, w, lane] \
                     - cnt[k, t]
-                i0 = v0 + (k * threads + t) * 16 - off
+                v = v0 + (k * threads + t) * 16
+                g = v >> 5
+                if table is not None and lane % 2 == 0 and g < -(-n // 32):
+                    b0, b1 = int(bits[k, t]), int(bits[k, t + 1])
+                    b2 = (_granule_bits(mask, v + 32, off) if lane == 30
+                          else int(bits[k, t + 2]))
+                    word = (b0 >> off) | (b1 << (16 - off))
+                    if off:
+                        word |= b2 << (32 - off)
+                    assert table[2 * g] == -1 and table[2 * g + 1] == -1
+                    table[2 * g] = r + bin(b0 & ((1 << off) - 1)).count("1")
+                    table[2 * g + 1] = word & 0xFFFFFFFF
+                i0 = v - off
                 m = int(bits[k, t])
                 while m and r < capacity:
                     assert out[r] == -1
@@ -269,6 +293,28 @@ def test_one_pass_compaction_plan(n, density, off):
         assert (reads == 1).all()
         np.testing.assert_array_equal(got, want.numpy())
         assert count == int(wcount)
+
+
+@pytest.mark.parametrize("off", [0, 1, 7, 15])
+@pytest.mark.parametrize("n, density", [(1, 1.0), (31, 0.5), (37, 0.5),
+                                        (16384 + 13, 0.3), (40000, 1e-3),
+                                        (2 * 16384, 1.0), (20000, 0.0)])
+def test_one_pass_ranktable_plan(n, density, off):
+    """Kernel B5's table writes (B4's launch with TABLE): every 32-slot
+    group's pair is written exactly once, by the lane holding the group's
+    first granule, and equals the plain version's, at every alignment;
+    the last group of a ragged mask holds its valid bits only."""
+    mask = np.random.default_rng(7 * n + off).random(n) < density
+    total = int(mask.sum())
+    for cap in (total + 33, max(1, total // 2)):
+        table = np.full(2 * (-(-n // 32)), -1, np.int64)
+        got, count, _ = _emulate_b4(mask, off, cap, table)
+        want_idx, want_tab, want_count = compact._ranktable_plain(
+            torch.as_tensor(mask), cap)
+        np.testing.assert_array_equal(got, want_idx.numpy())
+        assert count == int(want_count)
+        np.testing.assert_array_equal(
+            table.astype(np.uint32).view(np.int32), want_tab.numpy())
 
 
 def test_indices_plan_counts():

@@ -399,8 +399,10 @@ def test_hybrid_fields(name, nf):
         tree(np.zeros((2, 3)), device="cpu")
     with pytest.raises(ValueError, match="gather"):
         ec.eval_tiles_and_classify_batched(f, X, X, X, tiles, tile, td)
-    with pytest.raises(NotImplementedError, match="field"):
-        ec.kernel_source(f)
+    # The dense kernel's source of the raw expression reads the same fields
+    # through the same placeholders.
+    src = ec.kernel_source(f)
+    assert "F.p[%d][fi]" % (nf - 1) in src and src == ec.kernel_source(tree, nf)
 
 
 def test_hybrid_matches_jax_per_tile_kernel():
@@ -720,19 +722,32 @@ def test_gather_expression_meshes_through_tiles():
 
 
 def test_gather_expression_routes_to_tiles_at_the_defaults():
-    """sparse=True on a gather-bearing expression goes to the tiles at once
-    (the dense eval kernel takes no field inputs), says so in the
-    statistics, and gives the sparse='tiles' soup bit for bit."""
+    """sparse=True on a gather-bearing expression routes by the cull alone,
+    as the JAX package does (no gather rule, no ``gather_tiles`` key): at
+    these bounds the cull removes 9 of 27 batches, under
+    AUTO_TILES_THRESHOLD, so the run stays dense and kernel B1's pre-pass
+    records the fields; with the threshold under the cull the same call
+    goes to the tiles and gives the sparse='tiles' soup bit for bit; both
+    routes give one canonical soup."""
     f = th.gather_models(sp)["circular"]
     kw = dict(bounds=((-1.3,) * 3, (1.3,) * 3), samples=2**13, batch_size=8,
               verbose=False, device="cpu")
-    got = sp.generate(f, **kw)
+    dense = sp.generate(f, **kw)
     stats = dict(tengine.LAST_STATS)
-    assert stats["gather_tiles"] is True and "sparse_tiles" in stats
-    assert "eval_classify" not in stats and "auto_tiles" not in stats
+    assert stats["skipped"] == 9 and stats["batches"] == 27
+    assert "record_fields" in stats and "eval_classify" in stats
+    assert "auto_tiles" not in stats and "sparse_tiles" not in stats
+    assert "gather_tiles" not in stats
+    threshold = tengine.AUTO_TILES_THRESHOLD
+    tengine.AUTO_TILES_THRESHOLD = 0.3
+    tengine._COUNTS_MEMO.clear()  # the dense run's counts would stop the route
+    try:
+        got = sp.generate(f, **kw)
+        stats = dict(tengine.LAST_STATS)
+    finally:
+        tengine.AUTO_TILES_THRESHOLD = threshold
+    assert stats["auto_tiles"] == round(9 / 27, 4) and "sparse_tiles" in stats
     want = sp.generate(f, sparse="tiles", **kw)
     assert "gather_tiles" not in tengine.LAST_STATS
     assert len(got) and np.array_equal(got, want)
-    # a gather-free expression is not routed by this rule
-    sp.generate(th.example(sp), samples=2**12, verbose=False, device="cpu")
-    assert "gather_tiles" not in tengine.LAST_STATS
+    assert th.soup_hash(dense) == th.soup_hash(got)

@@ -227,3 +227,74 @@ def run_body(src, x, y, z, P, fields=()):
             m = re.match(r"const (?:T|bool) (v\d+) = (.*);$", line)
             env[m.group(1)] = eval(_py(m.group(2)), env)
     raise ValueError("no return statement in the generated body")
+
+
+# --- gather-bearing models, built from seed-made inputs in either package ---
+
+
+def polygon_points(seed=0, n=9):
+    """A star-shaped polygon of ``n`` seed-made vertices, counter-clockwise:
+    (n, 2) float64."""
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(0.0, 2 * np.pi, n))
+    return np.stack([np.cos(ang), np.sin(ang)], 1) * rng.uniform(0.55, 1.0,
+                                                                 (n, 1))
+
+
+def polygon_model(m, seed=0):
+    """A seed-made polygon extruded and unioned with a rounded box, in the
+    package ``m``."""
+    return (m.polygon(polygon_points(seed)).extrude(0.6)
+            | m.rounded_box((0.5, 0.5, 1.0), 0.1))
+
+
+def legacy_closure(m, numpy_only=True):
+    """A reference-style custom SDF in the package ``m``: a bare closure
+    over (N, 3) arrays.  With ``numpy_only`` it converts the points with
+    ``np.asarray``, which only numpy runs (the host tier); else plain
+    indexing and arithmetic (the tier that takes the points as they
+    are)."""
+    @m.sdf3
+    def blob(r=0.8):
+        if numpy_only:
+            def f(p):
+                a = np.asarray(p, dtype=np.float64)
+                return np.sqrt(np.sum(a * a, axis=1)) - r
+        else:
+            def f(p):
+                return (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]
+                        + p[:, 2] * p[:, 2]) - r * r
+        return f
+
+    return blob()
+
+
+def sphere_mesh_points():
+    """An icosphere of radius 1 subdivided twice: (points (162, 3),
+    triangles (320, 3)), made with numpy (closed, outward)."""
+    t = (1 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+         (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+         (-t, 0, -1), (-t, 0, 1)]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    pts = [np.asarray(p, float) / np.linalg.norm(p) for p in v]
+    for _ in range(2):
+        mid = {}
+        faces = []
+
+        def middle(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in mid:
+                p = pts[i] + pts[j]
+                pts.append(p / np.linalg.norm(p))
+                mid[key] = len(pts) - 1
+            return mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+            faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = faces
+    return np.asarray(pts), np.asarray(f, np.int64)
