@@ -63,8 +63,13 @@ Phases, each printing its own lines:
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
-misaligned views).  It also holds kernels B6 and B7 against their plain versions on the
-tile lists of phases 9 to 11, and kernels B1 to B5 at the shapes phase 9
+misaligned views).  It also holds kernels B6 and B7 against their plain
+versions on the tile lists of phases 9 to 11 and at tiles 1, 33, 64 and
+65 on the example's grid, each with ``live`` (the padded rows copied, not
+evaluated) and without, in both dtypes, and B7 with one and two fields;
+it prints B6/B7's plan at each tile and times B6 on blobby's 512 rows and
+B7 on the rotated lookup's tiles with and without ``live``; and kernels
+B1 to B5 at the shapes phase 9
 gives them: B1 (in both dtypes), B2, B3 on blobby's whole 2**26 grid (the
 speculative dense pass), B2 to B5 on the 512 tile volumes, the tile-cell
 mask and the per-tile edge mask.  For B1 it prints the launch plan (slab
@@ -88,7 +93,16 @@ cuobjdump); and, on a machine with a card, the instruction floors: B1's on
 the example's and blobby's main-path grids (those instructions times the
 samples B1's plan evaluates, over the card's issue rate), and B2's on the
 example's 162^3 grid, blobby's 407^3 grid and the routed run's 512 tile
-volumes (its instructions times the cells).
+volumes (its instructions times the cells), and B6's on the routed run's
+tile rows, the 388 a live call evaluates and all 512 (blobby's
+instructions times the samples B6's plan evaluates); and for B6/B7 the
+blocks of 256 threads an SM holds at each model's registers.
+
+``python3 chip_smoke.py --tile-sweep`` times kernel B6 on the routed
+run's 512 tile rows (388 evaluated) with a row cut into 1 to 16 blocks,
+in clusters that share their halos and in clusters of one block that
+evaluate them again, in both dtypes, each output held bit-equal to the
+default plan's.
 
 ``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
 length forced to each of a range of values, on the example's 2**22 grid
@@ -108,7 +122,6 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 
 SOUP_2P24 = "54d4ad9c22a8ce6bb77d8b763e2abb6878eda56ece4a40ea8aa274802b698ca3"
 EXT_GRID_2P24 = "3fb04083920066edbaef61d2d80986b926941df188874e34fdda3b447eb73fcc"
@@ -437,15 +450,19 @@ def issue_rate():
     """Thread instructions the card can issue per second: per SM, 4
     schedulers of 32 lanes, one warp instruction a clock each, at the SM's
     highest clock (nvidia-smi clocks.max.sm)."""
-    import torch
-
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 128 * mhz * 1e6
+    return card_sms() * 128 * mhz * 1e6
+
+
+def card_sms():
+    """The card's SMs, which kernels B3's and B6/B7's plans fill."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def instruction_floor_ms(counts, evaluations, rate):
@@ -507,6 +524,23 @@ def kept_tiles(f, axes, tile, dtype, device, pad=True):
                       3), np.int32)
     tiles[:len(active)] = active
     return torch.as_tensor(tiles, device=device), len(active)
+
+
+def surface_cells(f, axes, dtype, device):
+    """A tile list at tile 1: the cells the surface crosses (case neither 0
+    nor 255 on the plain dense grid), x-major, padded with tile 0 to
+    round_capacity; returns ``(tiles (ntc, 3) int32 tensor, live count)``.
+    The host cull's per-tile Python loop would take minutes at tile 1."""
+    import torch
+
+    from sdf_torch.core import eval_classify, mc
+
+    _, cas = eval_classify._eval_classify_plain(f, *axes, dtype, device)
+    active = torch.nonzero((cas != 0) & (cas != 255)).to(torch.int32)
+    tiles = torch.zeros((mc.round_capacity(len(active)), 3),
+                        dtype=torch.int32, device=device)
+    tiles[:len(active)] = active
+    return tiles, len(active)
 
 
 def check_tile_order(verts, faces, axes, tile):
@@ -633,15 +667,13 @@ def _entry_label(fn):
                        ("ntri_kernel", "B3 ntri (int32)")):
         if key in fn:
             return label
-    dtype = "double" if re.search(r"kernelId", fn) else "float"
-    if "eval_tiles" in fn:
-        dtype += ", clamp" if "Lb1" in fn else ", fields"
-    return dtype
+    return "double" if re.search(r"kernelId", fn) else "float"
 
 
 def _print_ptxas(out):
     """Registers, stack and spills of each entry function in an ``nvcc
-    -Xptxas -v`` log."""
+    -Xptxas -v`` log; returns the registers of each."""
+    regs_of = []
     for fn, info in re.findall(
             r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
             r"registers[^\n]*)", out, re.S):
@@ -652,6 +684,16 @@ def _print_ptxas(out):
         print("  %-26s %s registers, stack %s B, spill stores %s B, "
               "loads %s B" % (_entry_label(fn), regs, stack, spill.group(1),
                               spill.group(2)))
+        regs_of.append(int(regs))
+    return regs_of
+
+
+def blocks_by_registers(regs, threads):
+    """Blocks of ``threads`` an SM holds at ``regs`` registers a thread:
+    65,536 registers, allocated to each warp in units of 256 (8 a thread),
+    at most 2,048 threads."""
+    per_block = -(-regs // 8) * 8 * threads
+    return min(65536 // per_block, 2048 // threads)
 
 
 def ptxas_report():
@@ -711,7 +753,13 @@ def ptxas_report():
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed:\n" + out)
             print("%s %s (%d ops/point):" % (name, kind, ops))
-            _print_ptxas(out)
+            regs = _print_ptxas(out)
+            if kind == "B6/B7":
+                print("  B6/B7 blocks of %d threads an SM by registers: %s"
+                      % (eval_classify._TILE_THREADS, ", ".join(
+                          str(blocks_by_registers(r, eval_classify.
+                                                  _TILE_THREADS))
+                          for r in regs)))
         for proc in b23.values():
             out, _ = proc.communicate()
             if proc.returncode != 0:
@@ -735,6 +783,24 @@ def ptxas_report():
                   "instruction floor %s" % (dt, "x".join(map(str, shape)),
                                             evals, evals / np.prod(shape),
                                             floor))
+    # B6 on the routed run's tile list: blobby's kept tiles at 2^26, tile
+    # 32, the rows a live call evaluates and every row (the plan needs the
+    # card's SMs).
+    axes = grid_axes(models["blobby"], 2**26, torch.float32)
+    tiles, nt = kept_tiles(models["blobby"], axes, 32, torch.float32, "cpu")
+    for rows in (min(nt + 1, len(tiles)), len(tiles)) if rate else ():
+        per_row = eval_classify.tile_evaluations(32, rows, card_sms())
+        for dt, counts in sass["blobby"].items():
+            floor = ("%.4f ms" % instruction_floor_ms(counts, rows * per_row,
+                                                      rate)
+                     if rate else "not measured (no card)")
+            print("  B6 %s on blobby's tiles at 2^26: %d of %d rows (%d "
+                  "live), %d blocks of %d threads, %d evaluations (%.4f a "
+                  "sample), instruction floor %s" % (
+                      dt, rows, len(tiles), nt,
+                      rows * eval_classify.tile_plan(32, rows, card_sms())[1],
+                      eval_classify._TILE_THREADS, rows * per_row,
+                      per_row / 33**3, floor))
     # B2 on the grids of the example (2^22) and blobby (2^26), and on the
     # routed run's 512 tile volumes of 32^3 cells.
     print("B2 classify_ext: SASS instructions per cell (total, float64 "
@@ -816,6 +882,53 @@ def slab_sweep(dev):
     return 0
 
 
+def tile_sweep(dev):
+    """Kernel B6 on the routed run's tile list (blobby's 512 rows at 2**26,
+    tile 32, live = the kept count) under forced cuts of a row (blocks a
+    row, blocks a cluster; a cluster of one block evaluates its halo
+    again), in both dtypes: one JSON line each with the device ms, the
+    blocks and the evaluations a sample, each output held bit-equal to the
+    default plan's."""
+    import torch
+
+    from sdf_torch import _build
+    from sdf_torch.core import eval_classify
+    from sdf_torch.models import zoo
+
+    print(card_line())
+    g = zoo.blobby()
+    _build.build_many([("eval_tiles", eval_classify.tile_kernel_source(g))])
+    axes = grid_axes(g, 2**26, torch.float32)
+    tiles, nt = kept_tiles(g, axes, 32, torch.float32, dev)
+    rows = min(nt + 1, len(tiles))
+    b6 = eval_classify.eval_tiles_and_classify_batched
+    default = eval_classify.tile_plan(32, rows, card_sms())[1:3]
+    for dt in (torch.float32, torch.float64):
+        ints = torch.int32 if dt == torch.float32 else torch.int64
+        vol, cas = b6(g, *axes, tiles, 32, dt, live=nt)
+        for blocks, csize in ((1, 1), (2, 2), (4, 4), (8, 8), (16, 8),
+                              (4, 1), (8, 1)):
+            run = lambda: eval_classify._launch_tiles(
+                g, *axes, tiles, 32, dt, nt, (), b6, blocks, csize)
+            vk, ck = run()
+            if not (torch.equal(vk.view(ints), vol.view(ints))
+                    and torch.equal(ck, cas)):
+                raise AssertionError("B6 with %d blocks a row in clusters "
+                                     "of %d differs from the default plan"
+                                     % (blocks, csize))
+            del vk, ck
+            print(json.dumps(dict(
+                kernel="eval_tiles_batched", rows=len(tiles), live=nt,
+                dtype=str(dt).split(".")[1], blocks_a_row=blocks,
+                cluster=csize, default=(blocks, csize) == default,
+                blocks=rows * blocks,
+                evaluations_per_sample=eval_classify.tile_evaluations(
+                    32, rows, card_sms(), blocks, csize) / 33**3,
+                ms=device_ms(run, reps=10, warm=2))), flush=True)
+        del vol, cas
+    return 0
+
+
 def b2_sweep(name, vol, cas, dev):
     """Kernel B2 on ``vol`` (with ``cas`` as its base cases) under forced
     slab lengths: one JSON line each, every output held bit-equal to the
@@ -863,6 +976,8 @@ def main():
     dev = torch.device("cuda")
     if "--slab-sweep" in sys.argv[1:]:
         return slab_sweep(dev)
+    if "--tile-sweep" in sys.argv[1:]:
+        return tile_sweep(dev)
     kernels = {}
 
     # -- phase 1 ---------------------------------------------------------------
@@ -1220,12 +1335,16 @@ def main():
         ints = torch.int32 if a.dtype == torch.float32 else torch.int64
         return torch.equal(a.view(ints), b.view(ints))
 
-    def tiles_bound(vols, nf, ops_pt, name):
+    def tiles_bound(vols, nf, ops_pt, name, rows=None):
+        """B6/B7's bound: every row's volume and cases written, ``nf``
+        fields read, and the samples and cells of ``rows`` rows computed
+        once each (default every row; with live, the evaluated ones)."""
         ntc, TS = vols.shape[0], vols.shape[1]
-        nbytes = vols.numel() * vols.element_size() * (1 + nf) \
-            + ntc * (TS - 1) ** 3 * 4 + ntc * 12
-        return bound_ms(nbytes, ops_pt * vols.numel()
-                        + 16 * ntc * (TS - 1) ** 3, name)
+        rows = ntc if rows is None else rows
+        nbytes = vols.numel() * vols.element_size() + rows * TS ** 3 * nf \
+            * vols.element_size() + ntc * (TS - 1) ** 3 * 4 + ntc * 12
+        return bound_ms(nbytes, ops_pt * rows * TS ** 3
+                        + 16 * rows * (TS - 1) ** 3, name)
 
     def hold_tile_shapes(vols, case, tiles, nt, axes, tile, name, keep):
         """Kernels B2 to B5 on what the tiled path gives them for these tile
@@ -1308,43 +1427,73 @@ def main():
                     slots=size, max_abs_err=err, ms=ms, plain_ms=pms,
                     bound_ms=b, bound_by=by, library_ms=lms)
 
+    # Each list the path builds, each with live (the count of live rows:
+    # the kernel evaluates one padded row and copies it) and without, in
+    # both dtypes; then tiles 1 (the surface cells), 33, 64, 65 and 203
+    # (more than 48 KB of shared memory a block) on the example's grid.
     tile_cases = [
         ("blobby 2^26", blobby, 2**26, 32, None, True),
         ("example 2^22", f, 2**22, 32, None, True),
         ("example 2^22", f, 2**22, 8, None, True),
         ("example 2^22, a list of one", f, 2**22, 32, 1, False),
-    ]
+    ] + [("example 2^22", f, 2**22, t, None, True)
+         for t in (1, 33, 64, 65, 203)]
     for label, g, samples, tile, first, pad in tile_cases:
         axes = grid_axes(g, samples, torch.float32)
-        tiles, nt = kept_tiles(g, axes, tile, torch.float32, dev, pad)
+        if tile == 1:
+            tiles, nt = surface_cells(g, axes, torch.float32, dev)
+        else:
+            tiles, nt = kept_tiles(g, axes, tile, torch.float32, dev, pad)
         if first:
             tiles, nt = tiles[nt - first: nt].contiguous(), first
         ops_pt = body_op_count(eval_classify.tile_kernel_source(g))
+        rows = min(nt + 1, len(tiles))
+        S, nblk, csize, smem = eval_classify.tile_plan(tile, rows, card_sms())
+        evals = eval_classify.tile_evaluations(tile, rows, card_sms())
+        print("  B6/B7 plan at tile %d: %d blocks a row of %d samples, "
+              "clusters of %d, %d B of shared memory a block; %.4f "
+              "evaluations a sample; %s: %d rows, %d live, %d evaluated, %d "
+              "blocks" % (tile, nblk, S, csize, smem,
+                          evals / (tile + 1) ** 3, label, len(tiles), nt,
+                          rows, rows * nblk))
         for dt in (torch.float32, torch.float64):
             name = str(dt).split(".")[1]
-            vk, ck = b6(g, *axes, tiles, tile, dt)
-            v7, c7 = b7(g, *padded(axes, tile), tiles, tile, dt)
             vp = eval_classify._eval_tiles(g, *axes, tiles, tile, dt)
             cp = mc._cell_cases(vp)
-            check(same_bits(vk, vp) and torch.equal(ck, cp),
-                  "B6 %s tile %d %s: %d tiles (%d live) vols and cases "
-                  "bit-equal to plain" % (label, tile, name, len(tiles), nt))
-            check(same_bits(v7, vk) and torch.equal(c7, ck),
-                  "B7 without fields equal to B6 (%s tile %d %s)"
-                  % (label, tile, name))
+            for live in (None, nt):
+                vk, ck = b6(g, *axes, tiles, tile, dt, live=live)
+                v7, c7 = b7(g, *padded(axes, tile), tiles, tile, dt, live=live)
+                check(same_bits(vk, vp) and torch.equal(ck, cp),
+                      "B6 %s tile %d %s live=%s: %d tiles (%d live) vols and "
+                      "cases bit-equal to plain" % (label, tile, name, live,
+                                                    len(tiles), nt))
+                check(same_bits(v7, vk) and torch.equal(c7, ck),
+                      "B7 without fields equal to B6 (%s tile %d %s live=%s)"
+                      % (label, tile, name, live))
+                del v7, c7
             if label != "blobby 2^26":
+                del vk, ck, vp, cp
                 continue
             err = max_abs_diff([(vk, vp), (ck, cp)])
-            ms = device_ms(lambda: b6(g, *axes, tiles, tile, dt))
-            ms7 = device_ms(lambda: b7(g, *padded(axes, tile), tiles, tile, dt))
+            # ms: live=nt, what the routed run launches; ms_all_rows: every
+            # padded row evaluated, the work of the kernel before live.
+            ms = device_ms(lambda: b6(g, *axes, tiles, tile, dt, live=nt))
+            kms = device_ms(lambda: b6(g, *axes, tiles, tile, dt, live=nt),
+                            match="eval_tiles")
+            ms_all = device_ms(lambda: b6(g, *axes, tiles, tile, dt))
+            ms7 = device_ms(lambda: b7(g, *padded(axes, tile), tiles, tile, dt,
+                                       live=nt))
             pms = device_ms(lambda: (
                 mc._cell_cases(eval_classify._eval_tiles(
                     g, *axes, tiles, tile, dt))), reps=3, warm=1)
-            b, by = tiles_bound(vk, 0, ops_pt, name)
-            print("  B6 %s %s: %d tiles kernel_ms %.4f (B7 without fields "
-                  "%.4f) plain_ms %.4f bound_ms %.4f (%s; %d ops/point) "
-                  "max_abs_err %g" % (label, name, len(tiles), ms, ms7, pms,
-                                      b, by, ops_pt, err))
+            b, by = tiles_bound(vk, 0, ops_pt, name, rows)
+            b_all, by_all = tiles_bound(vk, 0, ops_pt, name)
+            print("  B6 %s %s: %d tiles, %d evaluated: kernel_ms %.4f (the "
+                  "kernel %.4f, the padded rows' copies the rest; every row "
+                  "%.4f; B7 without fields %.4f) plain_ms %.4f bound_ms %.4f "
+                  "(%s; %d ops/point; every row %.4f %s) max_abs_err %g"
+                  % (label, name, len(tiles), rows, ms, kms, ms_all, ms7,
+                     pms, b, by, ops_pt, b_all, by_all, err))
             hold_tile_shapes(vk, ck, tiles, nt, axes, tile, name,
                              dt == torch.float32)
             if dt == torch.float32:
@@ -1353,9 +1502,10 @@ def main():
                     source="sdf_torch/csrc/eval_tiles.cu",
                     replaces="sdf_tpu/core/pallas_eval.py:262",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, library_ms=None,
+                    bound_by=by, library_ms=None, kernel_only_ms=kms,
+                    ms_all_rows=ms_all,
                 )
-        del vk, ck, v7, c7, vp, cp
+            del vk, ck, vp, cp
 
     # The routed run's speculative dense pass gives B1, B2 and B3 blobby's
     # whole 2^26 grid, another expression and 16 times the cells of the
@@ -1452,17 +1602,18 @@ def main():
     # B7 with fields: the gather-marked table lookup, recorded at rotated
     # points (one field) and under circular_array (two fields), against the
     # plain version reading the same fields and against the expression
-    # evaluated whole with torch ops.
+    # evaluated whole with torch ops; with live (the pre-pass records the
+    # evaluated rows only) and without.
     for gname, g in gathers.items():
         axes = grid_axes(g, 2**22, torch.float32, GATHER_BOUNDS)
         tiles, nt = kept_tiles(g, axes, 32, torch.float32, dev)
+        rows = min(nt + 1, len(tiles))
         pax = padded(axes, 32)
         tree = hybrid.to_kernel_tree(g)
         nf = gather_nf[gname]
         ops_pt = body_op_count(eval_classify.tile_kernel_source(tree, nf))
         for dt in (torch.float32, torch.float64):
             name = str(dt).split(".")[1]
-            vk, ck = b7(g, *pax, tiles, 32, dt)
             fields = hybrid.record_tiles(
                 g, *eval_classify._axes(*pax, dt, dev), tiles, 32)
             check(len(fields) == nf, "%s records %d field(s)" % (gname, nf))
@@ -1471,36 +1622,48 @@ def main():
             whole = eval_classify._eval_tiles(g, *pax, tiles, 32, dt,
                                               clamp=False)
             cp = mc._cell_cases(vp)
-            check(same_bits(vk, vp) and torch.equal(ck, cp)
-                  and same_bits(vk, whole),
-                  "B7 %s %s: %d tiles (%d live), %d field(s), bit-equal to "
-                  "plain and to the whole expression"
-                  % (gname, name, len(tiles), nt, nf))
+            for live in (None, nt):
+                vk, ck = b7(g, *pax, tiles, 32, dt, live=live)
+                check(same_bits(vk, vp) and torch.equal(ck, cp)
+                      and same_bits(vk, whole),
+                      "B7 %s %s live=%s: %d tiles (%d live), %d field(s), "
+                      "bit-equal to plain and to the whole expression"
+                      % (gname, name, live, len(tiles), nt, nf))
             if gname != "rotated":
+                del vk, ck
                 continue
             err = max_abs_diff([(vk, vp), (ck, cp)])
-            # ms is the wrapper the path calls: the torch pre-pass that
-            # records the fields, then the kernel.  plain_ms is the same
-            # function with torch ops only (the whole expression on the
-            # tile windows, then the cases).  Beside them the pre-pass and
-            # the kernel alone, launched on fields recorded once, with a
-            # counter of its own.
-            ms = device_ms(lambda: b7(g, *pax, tiles, 32, dt))
+            # ms is the wrapper the path calls (live=nt): the torch pre-pass
+            # that records the fields of the evaluated rows, then the
+            # kernel.  plain_ms is the same function with torch ops only
+            # (the whole expression on the tile windows, then the cases).
+            # Beside them the pre-pass and the kernel alone, launched on
+            # fields recorded once, with and without live.
+            ms = device_ms(lambda: b7(g, *pax, tiles, 32, dt, live=nt))
+            ms_all = device_ms(lambda: b7(g, *pax, tiles, 32, dt))
             pms = device_ms(lambda: mc._cell_cases(eval_classify._eval_tiles(
                 g, *pax, tiles, 32, dt, clamp=False)), reps=3, warm=1)
-            bare = types.SimpleNamespace(launches=0)
+            live_fields = tuple(fl[:rows] for fl in fields)
             kms = device_ms(lambda: eval_classify._launch_tiles(
-                tree, *pax, tiles, 32, dt, False, fields, bare))
+                tree, *pax, tiles, 32, dt, nt, live_fields, b7))
+            kms_all = device_ms(lambda: eval_classify._launch_tiles(
+                tree, *pax, tiles, 32, dt, None, fields, b7))
             rms = device_ms(lambda: hybrid.record_tiles(
+                g, *eval_classify._axes(*pax, dt, dev), tiles[:rows], 32),
+                reps=3, warm=1)
+            rms_all = device_ms(lambda: hybrid.record_tiles(
                 g, *eval_classify._axes(*pax, dt, dev), tiles, 32),
                 reps=3, warm=1)
-            b, by = tiles_bound(vk, 0, ops_pt, name)
-            print("  B7 %s %s: %d tiles wrapper_ms %.4f (pre-pass %.4f + "
-                  "kernel %.4f) plain_ms %.4f bound_ms %.4f (%s; %d "
+            b, by = tiles_bound(vk, 0, ops_pt, name, rows)
+            b_all, _ = tiles_bound(vk, 0, ops_pt, name)
+            print("  B7 %s %s: %d tiles, %d evaluated: wrapper_ms %.4f "
+                  "(pre-pass %.4f + kernel %.4f); every row %.4f (%.4f + "
+                  "%.4f) plain_ms %.4f bound_ms %.4f (%s; every row %.4f; %d "
                   "ops/point in the kernel body; the fields are the "
                   "wrapper's own, so the bound counts no field bytes) "
-                  "max_abs_err %g" % (gname, name, len(tiles), ms, rms, kms,
-                                      pms, b, by, ops_pt, err))
+                  "max_abs_err %g" % (gname, name, len(tiles), rows, ms, rms,
+                                      kms, ms_all, rms_all, kms_all, pms, b,
+                                      by, b_all, ops_pt, err))
             if dt == torch.float32:
                 kernels["eval_tiles"] = dict(
                     name="eval_tiles", route="cuda",
@@ -1508,9 +1671,12 @@ def main():
                     replaces="sdf_tpu/core/pallas_eval.py:163",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
                     bound_by=by, library_ms=None, prepass_ms=rms,
-                    kernel_only_ms=kms,
+                    kernel_only_ms=kms, ms_all_rows=ms_all,
+                    prepass_ms_all_rows=rms_all,
+                    kernel_only_ms_all_rows=kms_all,
                 )
-        del vk, ck, vp, cp, whole, fields
+            del vk, ck, live_fields
+        del vp, cp, whole, fields
 
     # B1 with field inputs on the example's grid: the fields of the
     # gather-bearing subtrees recorded over the whole grid (the pre-pass,
@@ -2067,7 +2233,8 @@ def main():
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
-            "kernel_only_ms", "nf", "nf4"]
+            "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
+            "kernel_only_ms_all_rows"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

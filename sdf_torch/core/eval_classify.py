@@ -18,10 +18,11 @@ sample's own index.  On the CPU it runs the plain pair ``_eval_volume`` +
 each a ``(tile+1)^3`` sample cube: B6 on the unpadded axes with indices
 clamped to the grid, for expressions the body can hold whole; B7 on axes
 padded by one tile, with the fields of gather-bearing subtrees computed
-ahead by ``core.hybrid`` and read by the body.  Both are instantiations of
-the kernel template ``csrc/eval_tiles.cu`` and share B1's per-point body
-(``csrc/sdf_point.cuh``).  Their plain pair is ``_eval_tiles`` +
-``mc._cell_cases``.
+ahead by ``core.hybrid`` and read by the body.  Both launch the one
+instantiation per dtype of ``csrc/eval_tiles.cu`` (launch plan
+``tile_plan``) and share B1's per-point body (``csrc/sdf_point.cuh``).
+With ``live`` they evaluate the live rows and one padded row and copy it
+over the rest.  Their plain pair is ``_eval_tiles`` + ``mc._cell_cases``.
 
 Ops with no C++ form raise ``NotImplementedError`` naming the op on the
 card.
@@ -568,43 +569,156 @@ def _eval_tiles(sdf, X, Y, Z, tiles, tile, dtype, chunk=128, clamp=True,
     return vols
 
 
-def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, clamp, fields, counter):
+# Kernels B6 and B7's launch plan (csrc/eval_tiles.cu): a tile row's
+# samples, flattened, are cut into ``blocks`` ranges of S samples (a
+# multiple of 32), one block each; the blocks of a row form clusters of
+# ``csize`` and take the halo their cells read from the next block's
+# shared memory, so only a cluster's last block, when the row goes on past
+# it, evaluates its halo (tile 243 and up).  A row takes as many blocks as
+# fill the card's SMs at _TILE_BLOCKS_PER_SM each (4 blocks of 256
+# threads, what bodies of up to 64 registers allow) with the launch's rows,
+# at most a cluster's _TILE_CLUSTER and each of at least _TILE_BLOCK_MIN
+# samples (and more than a halo).  Blobby's 388 evaluated rows at 2^26,
+# tile 32, on 132 SMs: 2 blocks a row of 17,984 samples, 776 blocks, each
+# sample evaluated once.  Measured on the H100 (chip_smoke.py
+# --tile-sweep), 2 blocks a row are 1-6% faster there than 1, 4 or 8
+# (float32 0.390 ms against 0.405, 0.415 and 0.409), and 8 blocks that
+# each evaluate their halo again (1.22 evaluations a sample) 15% slower.
+_TILE_THREADS = 256
+_TILE_CLUSTER = 8
+_TILE_BLOCK_MIN = 2048
+_TILE_BLOCKS_PER_SM = 4
+_TILE_SMEM = 232448  # bytes of shared memory a block may take
+
+
+def _tile_words(S, TS):
+    """32-bit words of sign bits a block of S samples keeps: its own and
+    the halo its cells read, to the second word of the last pair read."""
+    return (S - 1 + TS * TS + TS) // 32 + 2
+
+
+def tile_plan(tile, rows, sms, blocks=None, csize=None):
+    """Kernels B6/B7's plan at ``tile`` cells a tile for a launch over
+    ``rows`` rows on a card of ``sms`` SMs: ``(S, blocks, csize, smem)``,
+    the samples of a block's range, the blocks of a row, the blocks of a
+    cluster and the bytes of shared memory a block takes.  ``blocks`` and
+    ``csize`` force another cut (the card tests, the sweep)."""
+    if tile < 1:
+        raise ValueError("tile_plan: tile must be >= 1")
+    TS = tile + 1
+    N, halo = TS ** 3, TS * TS + TS + 1
+    if blocks is None:
+        fill = sms * _TILE_BLOCKS_PER_SM
+        csize = max(1, min(_TILE_CLUSTER, -(-fill // max(rows, 1)),
+                           N // max(_TILE_BLOCK_MIN, halo + 64)))
+        blocks = csize
+        while (4 * _tile_words(-(-N // (32 * blocks)) * 32, TS) > _TILE_SMEM
+               and N // blocks > halo):
+            blocks += csize
+    csize = csize or 1
+    S = -(-N // (32 * blocks)) * 32
+    smem = 4 * _tile_words(S, TS)
+    if (blocks % csize or not 1 <= csize <= _TILE_CLUSTER
+            or smem > _TILE_SMEM
+            or (csize > 1 and S < (_tile_words(S, TS) - S // 32) * 32)):
+        raise ValueError("tile_plan: no plan of %s blocks in clusters of %s "
+                         "at tile %d" % (blocks, csize, tile))
+    return S, blocks, csize, smem
+
+
+def tile_evaluations(tile, rows, sms, blocks=None, csize=None):
+    """Samples kernels B6/B7 evaluate for one tile row: each once, and the
+    halo of each cluster's last block where the row goes on past it."""
+    S, blocks, csize, _ = tile_plan(tile, rows, sms, blocks, csize)
+    TS = tile + 1
+    N, halo = TS ** 3, TS * TS + TS + 1
+    extra = sum(min(s1 + halo, N) - s1
+                for s1 in (min((b + 1) * S, N)
+                           for b in range(csize - 1, blocks, csize)))
+    return N + extra
+
+
+def _rows_evaluated(ntc, live):
+    """Rows of a tile list that kernels B6/B7 evaluate: every row, or with
+    ``live`` the live rows and the first padded one, which every later row
+    repeats."""
+    if live is None:
+        return ntc
+    if not 0 <= live <= ntc:
+        raise ValueError("eval_tiles: live must be in [0, %d]" % ntc)
+    return min(live + 1, ntc)
+
+
+def _repeat_last_row(vols, case, rows):
+    """Fill rows ``rows..`` of the outputs with a copy of row ``rows - 1``
+    (the padded rows a ``live`` call does not evaluate)."""
+    if 0 < rows < vols.shape[0]:
+        vols[rows:] = vols[rows - 1]
+        case[rows:] = case[rows - 1]
+    return vols, case
+
+
+def _plain_tiles(sdf, X, Y, Z, tiles, tile, dtype, live, clamp=True,
+                 fields=()):
+    """The plain pair on the rows a ``live`` call evaluates, the padded
+    rows copied as the kernel's wrapper copies them."""
+    ntc = tiles.shape[0]
+    rows = _rows_evaluated(ntc, live)
+    vols = torch.empty((ntc,) + (tile + 1,) * 3, dtype=dtype,
+                       device=tiles.device)
+    vols[:rows] = _eval_tiles(sdf, X, Y, Z, tiles[:rows], tile, dtype,
+                              clamp=clamp, fields=fields)
+    case = torch.empty((ntc,) + (tile,) * 3, dtype=torch.int32,
+                       device=tiles.device)
+    case[:rows] = _cell_cases(vols[:rows])
+    return _repeat_last_row(vols, case, rows)
+
+
+def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, live, fields, counter,
+                  blocks=None, csize=None):
+    """Kernel B6 or B7 on the rows ``live`` leaves to evaluate, under
+    ``tile_plan`` for those rows (or with ``blocks`` and ``csize`` forced);
+    the padded rows are copies.  Adds one to ``counter.launches``, the
+    calling wrapper's."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError("eval_tiles: dtype must be float32 or float64")
     _build.require_cuda(tiles, "eval_tiles")
     ntc, TS = tiles.shape[0], tile + 1
+    rows = _rows_evaluated(ntc, live)
     vols = torch.empty((ntc, TS, TS, TS), dtype=dtype, device=tiles.device)
     case = torch.empty((ntc, tile, tile, tile), dtype=torch.int32,
                        device=tiles.device)
     for f in fields:
         _build.require_cuda(f, "eval_tiles field")
-        if f.shape != vols.shape or f.dtype != dtype or f.device != tiles.device:
+        if (f.shape != (rows,) + vols.shape[1:] or f.dtype != dtype
+                or f.device != tiles.device):
             raise ValueError(
                 "eval_tiles: a field must be %s of shape %s on the tiles' "
-                "device" % (dtype, tuple(vols.shape)))
+                "device" % (dtype, (rows,) + tuple(vols.shape[1:])))
     if ntc == 0:
         return vols, case
-    src = tile_kernel_source(sdf, len(fields))
-    lib = _build.load("eval_tiles", src)
-    name = "sdf_eval_tiles_%s%s" % (
-        "" if clamp else "fields_", "f32" if dtype == torch.float32 else "f64")
-    fn = getattr(lib, name)
+    sms = torch.cuda.get_device_properties(tiles.device).multi_processor_count
+    S, blocks, csize, _ = tile_plan(tile, rows, sms, blocks, csize)
+    lib = _build.load("eval_tiles", tile_kernel_source(sdf, len(fields)))
+    fn = getattr(lib, "sdf_eval_tiles_%s%s" % (
+        "fields_" if fields else "",
+        "f32" if dtype == torch.float32 else "f64"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i, i, i, i, vp, i, vp,
-                   vp, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i, i, i, i, i, i, i,
+                   vp, i, vp, vp, vp]
     fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, tiles.device)
     P = _params_arg(sdf, dtype, tiles.device)
     ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
     _build.check(
         fn(Xt.data_ptr(), Yt.data_ptr(), Zt.data_ptr(), _address(P),
-           tiles.data_ptr(), ntc, len(X), len(Y), len(Z), tile, ptrs,
-           len(fields), vols.data_ptr(), case.data_ptr(),
+           tiles.data_ptr(), rows, len(X), len(Y), len(Z), tile, S, blocks,
+           csize, ptrs, len(fields), vols.data_ptr(), case.data_ptr(),
            _build.stream_ptr(tiles.device)),
         "eval_tiles",
     )
     counter.launches += 1
-    return vols, case
+    return _repeat_last_row(vols, case, rows)
 
 
 def _check_tiles(tiles, tile, what):
@@ -615,46 +729,51 @@ def _check_tiles(tiles, tile, what):
         raise ValueError("%s: unsupported device %s" % (what, tiles.device))
 
 
-def eval_tiles_and_classify_batched(sdf, X, Y, Z, tiles, tile, dtype):
+def eval_tiles_and_classify_batched(sdf, X, Y, Z, tiles, tile, dtype,
+                                    live=None):
     """Evaluate + classify the tiles ``tiles`` ((ntc, 3) int32 tensor; its
     device is where the work runs) of the grid ``X x Y x Z`` (host float64
     axis coordinates, UNPADDED: sample indices clamp to the grid) for the
     uncast gather-free expression ``sdf`` in ``dtype``.  Returns ``(vols
     (ntc, TS, TS, TS), case (ntc, tile, tile, tile) int32)``: kernel B6 on
-    CUDA, the plain pair on the CPU."""
+    CUDA, the plain pair on the CPU.
+
+    ``live``, when given, promises that rows ``live..ntc-1`` all equal row
+    ``live`` (a list padded with one tile): only rows ``[0, min(live + 1,
+    ntc))`` are evaluated and the later ones are copies of the last, so the
+    outputs equal those of ``live=None``."""
     _check_tiles(tiles, tile, "eval_tiles_and_classify_batched")
     if hybrid.count_gathers(sdf):
         raise ValueError(
             "eval_tiles_and_classify_batched: the expression has "
             "gather-marked subtrees; use eval_tiles_and_classify")
     if tiles.device.type == "cpu":
-        vols = _eval_tiles(sdf, X, Y, Z, tiles, tile, dtype)
-        return vols, _cell_cases(vols)
-    return _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, True, (),
+        return _plain_tiles(sdf, X, Y, Z, tiles, tile, dtype, live)
+    return _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, live, (),
                          eval_tiles_and_classify_batched)
 
 
 eval_tiles_and_classify_batched.launches = 0
 
 
-def eval_tiles_and_classify(sdf, X, Y, Z, tiles, tile, dtype):
+def eval_tiles_and_classify(sdf, X, Y, Z, tiles, tile, dtype, live=None):
     """The contract of ``eval_tiles_and_classify_batched`` on axes PADDED
-    by the caller with ``tile`` copies of their last coordinate (no clamp),
-    for any expression: the fields of its gather-marked subtrees are
-    computed ahead with torch ops on the tiles' windows
+    by the caller with ``tile`` copies of their last coordinate, for any
+    expression: the fields of its gather-marked subtrees are computed ahead
+    with torch ops on the windows of the rows ``live`` leaves to evaluate
     (``hybrid.record_tiles``) and read by the kernel.  Kernel B7 on CUDA,
     the plain pair on the CPU."""
     _check_tiles(tiles, tile, "eval_tiles_and_classify")
     fields, tree = (), sdf
     if hybrid.count_gathers(sdf):
         axes = _axes(X, Y, Z, dtype, tiles.device)
-        fields = hybrid.record_tiles(sdf, *axes, tiles, tile)
+        fields = hybrid.record_tiles(
+            sdf, *axes, tiles[:_rows_evaluated(tiles.shape[0], live)], tile)
         tree = hybrid.to_kernel_tree(sdf)
     if tiles.device.type == "cpu":
-        vols = _eval_tiles(tree, X, Y, Z, tiles, tile, dtype, clamp=False,
-                           fields=fields)
-        return vols, _cell_cases(vols)
-    return _launch_tiles(tree, X, Y, Z, tiles, tile, dtype, False, fields,
+        return _plain_tiles(tree, X, Y, Z, tiles, tile, dtype, live,
+                            clamp=False, fields=fields)
+    return _launch_tiles(tree, X, Y, Z, tiles, tile, dtype, live, fields,
                          eval_tiles_and_classify)
 
 

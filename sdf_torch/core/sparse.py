@@ -348,6 +348,8 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
     if nt == 0:
         return empty(pt)
     ntc = round_capacity(nt)
+    # Padding rows repeat tile (0, 0, 0): rows nt..ntc-1 are all equal, so
+    # the eval kernels take ``live=nt``, evaluate row nt once and copy it.
     tiles = np.zeros((ntc, 3), dtype=np.int32)
     tiles[:nt] = active
     live = np.zeros((ntc,), dtype=bool)
@@ -362,11 +364,11 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
         # repeated-sample cells are masked downstream).
         pad = lambda A: np.concatenate([A, np.full(tile, A[-1])])
         vols, case = eval_classify.eval_tiles_and_classify(
-            sdf, pad(X), pad(Y), pad(Z), tiles_d, tile, dtype)
+            sdf, pad(X), pad(Y), pad(Z), tiles_d, tile, dtype, live=nt)
         mode = "pertile"
     else:
         vols, case = eval_classify.eval_tiles_and_classify_batched(
-            sdf, X, Y, Z, tiles_d, tile, dtype)
+            sdf, X, Y, Z, tiles_d, tile, dtype, live=nt)
         mode = "batched"
     if variant != "default":
         # extend the kernels' 8-bit codes with the variant bits

@@ -484,46 +484,73 @@ def _padded(A, tile):
     return np.concatenate([A, np.full(tile, A[-1])])
 
 
-@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("tile", [1, 8, 16, 32, 33, 64, 65, 203])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_eval_tiles_kernels(cuda, dtype, tile):
     """Kernel B6 bit-equal to its plain version on a random half of the
     tiles of an odd-sized grid (edge tiles clamp; padded rows repeat tile
-    0), and kernel B7 without fields equal to B6."""
+    0), with ``live`` (the padded rows copied) and without, and kernel B7
+    without fields equal to B6.  Tile 203 takes more than 48 KB of shared
+    memory a block."""
     X = np.linspace(-1.1, 1.1, 37)
     Y = np.linspace(-1.0, 1.2, 41)
     Z = np.linspace(-1.2, 1.0, 70)
     t = th.grid_tiles((37, 41, 70), tile, np.random.default_rng(tile))
+    nt = len(t)
     t = np.concatenate([t, np.zeros((3, 3), np.int32)])
     tiles = torch.as_tensor(t, device=cuda)
+    b6, b7 = (eval_classify.eval_tiles_and_classify_batched,
+              eval_classify.eval_tiles_and_classify)
     for f in (th.example(sp), zoo.blobby()):
-        b6, b7 = (eval_classify.eval_tiles_and_classify_batched,
-                  eval_classify.eval_tiles_and_classify)
-        before = b6.launches, b7.launches
-        vk, ck = b6(f, X, Y, Z, tiles, tile, dtype)
-        v7, c7 = b7(f, _padded(X, tile), _padded(Y, tile), _padded(Z, tile),
-                    tiles, tile, dtype)
-        assert (b6.launches, b7.launches) == (before[0] + 1, before[1] + 1)
         vp = eval_classify._eval_tiles(f, X, Y, Z, tiles, tile, dtype)
+        cp = mc._cell_cases(vp)
+        for live in (None, nt):
+            before = b6.launches, b7.launches
+            vk, ck = b6(f, X, Y, Z, tiles, tile, dtype, live=live)
+            v7, c7 = b7(f, _padded(X, tile), _padded(Y, tile),
+                        _padded(Z, tile), tiles, tile, dtype, live=live)
+            assert (b6.launches, b7.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+            assert _same_bits(vk, vp) and torch.equal(ck, cp)
+            assert _same_bits(v7, vk) and torch.equal(c7, ck)
+
+
+@pytest.mark.parametrize("tile, blocks, csize", [
+    (8, 4, 1), (8, 3, 3), (7, 2, 1), (16, 6, 3), (32, 16, 8), (32, 8, 2),
+    (33, 5, 5), (243, 16, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eval_tiles_forced_plans(cuda, dtype, tile, blocks, csize):
+    """Kernel B6 under cuts of a row the default plan does not take at
+    these tiles: clusters of one block (each evaluates its halo), rows of
+    several clusters, clusters of 3 and 5; and tile 243's own plan, two
+    clusters of 8 with 121 KB of shared memory a block.  Each bit-equal to
+    the plain version."""
+    X = np.linspace(-1.1, 1.1, 37 if tile < 100 else 300)
+    t = th.grid_tiles((len(X),) * 3, tile,
+                      np.random.default_rng(tile + blocks))
+    tiles = torch.as_tensor(t[:2], device=cuda)
+    b6 = eval_classify.eval_tiles_and_classify_batched
+    for f in (th.example(sp), zoo.blobby()):
+        vk, ck = eval_classify._launch_tiles(f, X, X, X, tiles, tile, dtype,
+                                             None, (), b6, blocks, csize)
+        vp = eval_classify._eval_tiles(f, X, X, X, tiles, tile, dtype)
         assert _same_bits(vk, vp) and torch.equal(ck, mc._cell_cases(vp))
-        assert _same_bits(v7, vk) and torch.equal(c7, ck)
 
 
 @pytest.mark.parametrize("name", ["rotated", "circular"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_eval_tiles_kernel_with_fields(cuda, dtype, name):
     """Kernel B7 with recorded fields bit-equal to its plain version, and
-    to the expression evaluated whole with torch ops on the card."""
+    to the expression evaluated whole with torch ops on the card, with
+    ``live`` (fields recorded for the evaluated rows only) and without."""
     f = th.gather_models(sp)[name]
     tile = 8
     X = np.linspace(-1.3, 1.3, 45)
     Xp = _padded(X, tile)
-    tiles = torch.as_tensor(th.grid_tiles((45,) * 3, tile,
-                                          np.random.default_rng(5)), device=cuda)
-    before = eval_classify.eval_tiles_and_classify.launches
-    vk, ck = eval_classify.eval_tiles_and_classify(f, Xp, Xp, Xp, tiles, tile,
-                                                   dtype)
-    assert eval_classify.eval_tiles_and_classify.launches == before + 1
+    t = th.grid_tiles((45,) * 3, tile, np.random.default_rng(5))
+    nt = len(t)
+    tiles = torch.as_tensor(np.concatenate([t, np.zeros((4, 3), np.int32)]),
+                            device=cuda)
     axes = eval_classify._axes(Xp, Xp, Xp, dtype, cuda)
     fields = hybrid.record_tiles(f, *axes, tiles, tile)
     assert len(fields) == (2 if name == "circular" else 1)
@@ -531,8 +558,13 @@ def test_eval_tiles_kernel_with_fields(cuda, dtype, name):
                                    tile, dtype, clamp=False, fields=fields)
     whole = eval_classify._eval_tiles(f, Xp, Xp, Xp, tiles, tile, dtype,
                                       clamp=False)
-    assert _same_bits(vk, vp) and _same_bits(vk, whole)
-    assert torch.equal(ck, mc._cell_cases(vp))
+    for live in (None, nt):
+        before = eval_classify.eval_tiles_and_classify.launches
+        vk, ck = eval_classify.eval_tiles_and_classify(f, Xp, Xp, Xp, tiles,
+                                                       tile, dtype, live=live)
+        assert eval_classify.eval_tiles_and_classify.launches == before + 1
+        assert _same_bits(vk, vp) and _same_bits(vk, whole)
+        assert torch.equal(ck, mc._cell_cases(vp))
 
 
 def test_empty_tile_list_launches_nothing(cuda):

@@ -1,5 +1,5 @@
-"""The launch plans of kernels B1, B2, B3 and B4, computed in Python and
-passed to the CUDA kernels, checked on the CPU.
+"""The launch plans of kernels B1, B2, B3, B4 and B6/B7, computed in Python
+and passed to the CUDA kernels, checked on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); here the
 plans they are launched with, and numpy mirrors of the kernels' index
@@ -8,8 +8,11 @@ written by exactly one block and every cell classified exactly once, the
 corner bits read from the blocks' ballot words give the case codes; B2's
 row blocks classify every cell once from corners loaded at
 CORNER_OFFSETS' samples; B3's head, vectors and tail cover every code
-once at any int32 offset; and B4's chunks read each mask slot once, at
-any alignment, and put every index at its rank.  Tolerance: integer
+once at any int32 offset; B4's chunks read each mask slot once, at any
+alignment, and put every index at its rank; and B6/B7's blocks write
+every sample of a tile row once and classify every cell once from the
+ballot words of its sign bits and the halo of the next block of its
+cluster.  Tolerance: integer
 outputs, exact.
 """
 
@@ -46,6 +49,12 @@ def test_plan_constants_match_the_kernel_sources():
         mc._NTRI_THREADS, mc._NTRI_BLOCKS_PER_SM)
     # the blocks of an SM fill its 2,048 threads
     assert mc._NTRI_THREADS * mc._NTRI_BLOCKS_PER_SM == 2048
+    b6 = _build.source("eval_tiles.cu")
+    assert (_constant(b6, "NTHREADS"), _constant(b6, "CLUSTER"),
+            _constant(b6, "SMEM_MAX")) == (
+        ec._TILE_THREADS, ec._TILE_CLUSTER, ec._TILE_SMEM)
+    # 227 KB, the H100's most shared memory for one block; warps of 32
+    assert ec._TILE_SMEM == 232448 and ec._TILE_THREADS % 32 == 0
 
 
 def test_wrappers_call_entries_the_sources_define():
@@ -197,6 +206,218 @@ def test_ballot_words_give_the_case_codes(shape, lx):
     vol.reshape(-1)[rng.permutation(vol.size)[:vol.size // 20]] = np.nan
     want = mc._cell_cases(torch.as_tensor(vol)).numpy()
     np.testing.assert_array_equal(_emulate_b1_cases(vol, lx), want)
+
+
+# --- B6/B7: tile rows cut into slabs ------------------------------------------
+
+
+def _brick_evaluations(tile):
+    """Samples a tile row cost under the bricks of 4 x 8 x 32 cells that
+    eval_tiles.cu used before slabs: every brick evaluated its cells'
+    samples plus one along each axis, as far as the tile reached."""
+    TS = tile + 1
+
+    def axis(cells):
+        return sum(min(cells + 1, TS - a) for a in range(0, tile, cells))
+
+    return axis(4) * axis(8) * axis(32)
+
+
+SMS = 132  # an H100 SXM's SMs
+
+
+def _emulate_tiles(vol, blocks=None, csize=None):
+    """csrc/eval_tiles.cu's index rules in numpy, on one tile row ``vol``
+    (TS, TS, TS): per block, each thread's samples from its first index
+    and the (dx, dy, dz) steps with their carries, the samples it writes to
+    ``vols``, the ballot words of the sign bits; the halo words each block
+    but a cluster's last copies from the next block of its cluster; then
+    each thread's cells, their case codes from four funnel-shifted bit
+    pairs, and their index in ``cas``.  Unwritten bit words hold ones, so a
+    read of one shows.  Returns (writes per sample, evaluations, writes
+    per cell, case codes)."""
+    TS = vol.shape[0]
+    tile, NT = TS - 1, ec._TILE_THREADS
+    plane, N = TS * TS, TS ** 3
+    S, nblk, csize, smem = ec.tile_plan(tile, 1, SMS, blocks, csize)
+    nwords = smem // 4
+    inside = (np.asarray(vol) < 0).reshape(-1)
+    writes = np.zeros(N, np.int64)
+    cwrites = np.zeros(tile ** 3, np.int64)
+    case = np.full(tile ** 3, -1, np.int64)
+    evals = 0
+    tid = np.arange(NT)
+    lane = tid % 32
+    dz, dy, dx = NT % TS, NT // TS % TS, NT // plane
+
+    def start(p):
+        y = p // TS
+        return p % TS, y % TS, y // TS
+
+    def step(x, y, z):
+        z = z + dz
+        zc = z >= TS
+        z = z - zc * TS
+        y = y + dy + zc
+        yc = y >= TS
+        y = y - yc * TS
+        return x + dx + yc, y, z
+
+    bits = np.full((nblk, nwords), 0xFFFFFFFF, np.uint64)
+    written = np.zeros((nblk, nwords), bool)
+    for b in range(nblk):
+        rank = b % csize
+        s0 = min(b * S, N)
+        s1 = min(s0 + S, N)
+        e = min(s1 + plane + TS + 1, N) if rank == csize - 1 else s1
+        p = s0 + tid
+        z, y, x = start(p)
+        while (p - lane < e).any():
+            m = p < e
+            np.testing.assert_array_equal(p[m], ((x * TS + y) * TS + z)[m])
+            evals += int(m.sum())
+            np.add.at(writes, p[m & (p < s1)], 1)
+            ins = np.zeros(NT, bool)
+            ins[m] = inside[p[m]]
+            words = np.packbits(ins.reshape(-1, 32), axis=1,
+                                bitorder="little").view("<u4").reshape(-1)
+            go = (p - lane)[::32] < e
+            at = ((p - lane)[::32][go] - s0) >> 5
+            bits[b, at], written[b, at] = words[go], True
+            x, y, z = step(x, y, z)
+            p = p + NT
+    own = S // 32
+    for b in range(nblk):  # after the first cluster barrier
+        if b % csize < csize - 1:
+            halo = ec._tile_words(S, TS) - own
+            bits[b, own: own + halo] = bits[b + 1, :halo]
+            written[b, own: own + halo] = written[b + 1, :halo]
+    for b in range(nblk):  # after the second
+        s0 = min(b * S, N)
+        s1 = min(s0 + S, N)
+        q = s0 + tid
+        z, y, x = start(q)
+        while (q < s1).any():
+            m = (q < s1) & (x < tile) & (y < tile) & (z < tile)
+            ql = (q - s0)[m]
+
+            def pair(l):
+                assert written[b, l >> 5].all()
+                assert written[b, (l + 1) >> 5].all()
+                w = bits[b, l >> 5] | (bits[b, (l >> 5) + 1] << np.uint64(32))
+                return ((w >> (l & 31).astype(np.uint64)) & np.uint64(3)
+                        ).astype(np.int64)
+
+            a, c = pair(ql), pair(ql + plane)
+            d, f = pair(ql + plane + TS), pair(ql + TS)
+            at = ((x * tile + y) * tile + z)[m]
+            np.add.at(cwrites, at, 1)
+            case[at] = (a & 1) | (c & 1) << 1 | (d & 1) << 2 | (f & 1) << 3 \
+                | (a >> 1) << 4 | (c >> 1) << 5 | (d >> 1) << 6 \
+                | (f >> 1) << 7
+            x, y, z = step(x, y, z)
+            q = q + NT
+    return writes, evals, cwrites, case.reshape((tile,) * 3)
+
+
+def _tile_row(tile, seed):
+    """A random tile volume with exact zeros and NaNs (neither is
+    inside)."""
+    rng = np.random.default_rng(seed)
+    vol = rng.standard_normal((tile + 1,) * 3)
+    vol.reshape(-1)[rng.permutation(vol.size)[:vol.size // 10]] = 0.0
+    vol.reshape(-1)[rng.permutation(vol.size)[:vol.size // 20]] = np.nan
+    return vol
+
+
+TILES = [1, 2, 7, 8, 16, 31, 32, 33, 63, 64, 65, 203]
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_tile_plan_owns_every_sample_and_cell_once(tile):
+    """At every tile the wrappers are given (1 to 64, lewiner's word-pack
+    limit; 65; 203, the 8-bit variant's): every sample of a row is written
+    by exactly one block and every cell classified exactly once, the
+    evaluations are tile_evaluations', and the case codes from the ballot
+    words' funnel-shifted bit pairs, the halo copied from the next block
+    of the cluster, are the plain classification's."""
+    vol = _tile_row(tile, tile)
+    writes, evals, cwrites, case = _emulate_tiles(vol)
+    assert (writes == 1).all() and (cwrites == 1).all()
+    assert evals == ec.tile_evaluations(tile, 1, SMS)
+    want = mc._cell_cases(torch.as_tensor(vol)).numpy()
+    np.testing.assert_array_equal(case, want)
+
+
+@pytest.mark.parametrize("tile, blocks, csize", [
+    (8, 4, 1), (8, 3, 3), (7, 2, 1), (16, 6, 3), (32, 16, 8), (32, 8, 2),
+    (32, 2, 2), (33, 5, 5), (9, 1, 1)])
+def test_forced_tile_plans_own_every_sample_and_cell_once(tile, blocks,
+                                                          csize):
+    """Cuts the card tests force: clusters of one block (each evaluates its
+    halo), rows of several clusters (as from tile 243 on) and clusters that
+    take their halos from short ranges."""
+    vol = _tile_row(tile, 7 * tile + blocks)
+    writes, evals, cwrites, case = _emulate_tiles(vol, blocks, csize)
+    assert (writes == 1).all() and (cwrites == 1).all()
+    assert evals == ec.tile_evaluations(tile, 1, SMS, blocks, csize)
+    np.testing.assert_array_equal(
+        case, mc._cell_cases(torch.as_tensor(vol)).numpy())
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_tile_plan_evaluates_each_sample_about_once(tile):
+    """Once each up to tile 242 (the bricks took 1.32 at tile 32), at no
+    tile more than the bricks, and within 227 KB of shared memory."""
+    evals = ec.tile_evaluations(tile, 1, SMS)
+    assert evals == (tile + 1) ** 3
+    assert evals <= _brick_evaluations(tile)
+    assert ec.tile_plan(tile, 1, SMS)[3] <= ec._TILE_SMEM
+    if tile == 32:
+        assert _brick_evaluations(32) == 40 * 36 * 33
+
+
+@pytest.mark.parametrize("tile", [243, 300, 400, 962])
+def test_tile_plan_cuts_large_tiles_into_clusters(tile):
+    """Past tile 242 a row's sign bits outgrow 8 blocks' shared memory: the
+    row is cut into several clusters, each of which but the last evaluates
+    its halo, still below the bricks (which ended at tile 400, their
+    65,535th block)."""
+    S, blocks, csize, smem = ec.tile_plan(tile, 1, SMS)
+    assert csize == ec._TILE_CLUSTER and blocks > csize
+    assert smem <= ec._TILE_SMEM
+    evals = ec.tile_evaluations(tile, 1, SMS)
+    assert evals <= _brick_evaluations(tile)
+    if tile <= 400:
+        assert evals <= 1.01 * (tile + 1) ** 3
+    if tile == 962:  # the last tile whose halo fits a block
+        with pytest.raises(ValueError, match="no plan"):
+            ec.tile_plan(963, 1, SMS)
+
+
+def test_tile_plan_counts_and_limits():
+    # tile 32, one row: a cluster of 8 blocks of 4,512 samples
+    assert ec.tile_plan(32, 1, SMS) == (
+        4512, 8, 8, 4 * ((4511 + 33 * 33 + 33) // 32 + 2))
+    # blobby's routed run evaluates 388 rows: 2 blocks a row fill the 528
+    # that 132 SMs hold at 4 each; the example's 173 take 4; a card of
+    # half the SMs takes half the blocks
+    assert ec.tile_plan(32, 388, SMS)[:3] == (17984, 2, 2)
+    assert 388 * 2 >= SMS * ec._TILE_BLOCKS_PER_SM > 388
+    assert ec.tile_plan(32, 173, SMS)[1:3] == (4, 4)
+    assert ec.tile_plan(32, 173, SMS // 2)[1:3] == (2, 2)
+    # many rows: one block each; small tiles: no more than BLOCK_MIN allow
+    assert ec.tile_plan(32, 10**5, SMS)[1:3] == (1, 1)
+    assert ec.tile_plan(8, 1, SMS)[1:3] == (1, 1)
+    assert ec.tile_plan(16, 1, SMS)[1:3] == (2, 2)
+    assert ec.tile_plan(242, 1, SMS)[1] == 8
+    assert ec.tile_plan(243, 1, SMS)[1] == 16
+    with pytest.raises(ValueError, match=">= 1"):
+        ec.tile_plan(0, 1, SMS)
+    with pytest.raises(ValueError, match="no plan"):
+        ec.tile_plan(32, 1, SMS, 8, 3)  # clusters must divide the row
+    with pytest.raises(ValueError, match="no plan"):
+        ec.tile_plan(32, 1, SMS, 64, 8)  # a range shorter than a halo
 
 
 # --- B4: one-pass compaction -------------------------------------------------

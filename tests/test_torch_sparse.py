@@ -474,6 +474,95 @@ def test_tile_source_counts_its_fields():
         ec.tile_kernel_source(tree, 2)
 
 
+# --- live: the padded rows of a tile list are copies ----------------------------
+
+
+def _same_bits(a, b):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.dtype in ints:
+        a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+    return torch.equal(a, b)
+
+
+def _padded_list(tiles, pad):
+    """``tiles`` followed by ``pad`` rows of tile 0, as mesh_sparse_tiles
+    pads its list."""
+    return torch.as_tensor(np.concatenate([tiles, np.zeros((pad, 3),
+                                                           np.int32)]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", ["example", "blobby"])
+def test_batched_wrapper_with_live_equals_every_row(model, dtype):
+    """Kernel B6's wrapper with ``live``: the first padded row evaluated,
+    a later one, and none padded; the outputs are bit-equal to those of
+    ``live=None``, every padded row included."""
+    X, Y, Z = _model_grid(model)
+    t = th.grid_tiles((21,) * 3, 8, np.random.default_rng(6), 0.5)
+    tiles = _padded_list(t, 5)
+    f = MODELS[model][1](sp)
+    want = ec.eval_tiles_and_classify_batched(f, X, Y, Z, tiles, 8, dtype)
+    for live in (len(t), len(t) + 3, len(tiles)):
+        got = ec.eval_tiles_and_classify_batched(f, X, Y, Z, tiles, 8, dtype,
+                                                 live=live)
+        assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="live"):
+        ec.eval_tiles_and_classify_batched(f, X, Y, Z, tiles, 8, dtype,
+                                           live=len(tiles) + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name, nf", [("rotated", 1), ("circular", 2)])
+def test_per_tile_wrapper_records_and_evaluates_the_live_rows(name, nf, dtype,
+                                                              monkeypatch):
+    """Kernel B7's wrapper with ``live``: the pre-pass records the fields of
+    min(live + 1, ntc) rows only, and the outputs are bit-equal to those
+    of ``live=None``."""
+    f = th.gather_models(sp)[name]
+    tile = 8
+    X = _padded(np.linspace(-1.3, 1.3, 33), tile)
+    t = th.grid_tiles((33,) * 3, tile, np.random.default_rng(3), 0.4)
+    tiles = _padded_list(t, 4)
+    recorded = []
+    real = hybrid.record_tiles
+    monkeypatch.setattr(hybrid, "record_tiles",
+                        lambda *a: recorded.append(real(*a)) or recorded[-1])
+    want = ec.eval_tiles_and_classify(f, X, X, X, tiles, tile, dtype)
+    got = ec.eval_tiles_and_classify(f, X, X, X, tiles, tile, dtype,
+                                     live=len(t))
+    assert [fl.shape[0] for fl in recorded[0]] == [len(tiles)] * nf
+    assert [fl.shape[0] for fl in recorded[1]] == [len(t) + 1] * nf
+    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_mesh_sparse_tiles_passes_live(gather, monkeypatch):
+    """mesh_sparse_tiles hands its live count to the eval wrapper, and the
+    mesh equals the one from evaluating every padded row."""
+    f = th.gather_models(sp)["rotated"] if gather else th.example(sp)
+    name = ("eval_tiles_and_classify" if gather
+            else "eval_tiles_and_classify_batched")
+    X = np.linspace(-1.3, 1.3, 30)
+    skip = tengine._skip_mask(f, X, X, X, 8, torch.float32)
+    nt = int((~skip).sum())
+    assert tmc.round_capacity(nt) > nt  # the list is padded
+    real, seen = getattr(ec, name), []
+
+    def spy(*a, live=None):
+        seen.append((a[4].shape[0], live))
+        return real(*a, live=live)
+
+    monkeypatch.setattr(ec, name, spy)
+    got = tsparse.mesh_sparse_tiles(f, X, X, X, skip, 8, torch.float32, "cpu")
+    assert seen == [(tmc.round_capacity(nt), nt)]
+    monkeypatch.setattr(ec, name, lambda *a, live=None: real(*a))
+    want = tsparse.mesh_sparse_tiles(f, X, X, X, skip, 8, torch.float32,
+                                     "cpu")
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 # --- the whole pipeline -------------------------------------------------------------
 
 
