@@ -59,7 +59,23 @@ Phases, each printing its own lines:
  15. textures, if this machine has Pillow (and scipy): examples/image.py's
      model at 2**22 under the three routes, checked as in 12; and, if a
      DejaVuSans font is found too, examples/text.py's.  What is not run is
-     named on a line of its own.
+     named on a line of its own;
+ 16. diffmesh.extract of the example model on generate()'s 2**22 grid
+     (162^3), capacity 2**19, float32 and float64, lewiner and fast, with
+     the backward of its mean vertex to every leaf: kernels B2 (lewiner),
+     B3 (twice) and B4 (once) launched, each launch equal to its plain
+     version on its input; n (291,028), valid and the vertices equal to
+     the device="cpu" call, leaf gradients within a stated tolerance;
+     forward and backward wall times, a profiled breakdown, each kernel's
+     time; the default capacity overflows with a warning;
+ 17. examples/fit_sphere.py's loop through the port: 300 fit_step calls
+     fitting sphere(0.5) to the example model on 8,192 seeded points in
+     float32; the first step against device="cpu", the loss falling, ms a
+     step and the card's idle share;
+ 18. fit_chamfer of a sphere to a 384-point cloud on radius 1.2
+     (resolution 20, 80 steps, float64): the radius within 0.1 of 1.2;
+ 19. sample_slice of the example model at 1024 x 1024 on the card against
+     device="cpu".
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -80,8 +96,9 @@ and its time on a random-normal volume of the example's shape (what the
 example's nearly linear cells cost); for B3 it also checks views at
 int32 offsets 1 to 3; for B4 the share of its time that the memset of
 its look-back scratch takes.
-Then one JSON line with every kernel, the card line again, and last the
-result line.  Any failed check raises, and the script exits non-zero
+Then one JSON line with every kernel (B2's, B3's and B4's entries also
+carry ``diffmesh_launches``, their launches in phase 16's float32 lewiner
+extract), the card line again, and last the result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --ptxas`` instead compiles kernels B1 and B6/B7
@@ -104,6 +121,9 @@ in clusters that share their halos and in clusters of one block that
 evaluate them again, in both dtypes, each output held bit-equal to the
 default plan's.
 
+``python3 chip_smoke.py --diffmesh`` builds kernels B2, B3 and B4 and runs
+phases 16 to 19 alone (a few minutes shorter than the whole script).
+
 ``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
 length forced to each of a range of values, on the example's 2**22 grid
 and blobby's 2**26 grid in both dtypes, and kernel B2 with its slab length
@@ -122,11 +142,17 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 SOUP_2P24 = "54d4ad9c22a8ce6bb77d8b763e2abb6878eda56ece4a40ea8aa274802b698ca3"
 EXT_GRID_2P24 = "3fb04083920066edbaef61d2d80986b926941df188874e34fdda3b447eb73fcc"
 TRIS_2P22 = 291028
 TRIS_2P24 = 731152
+# Phase 16: diffmesh.extract on generate()'s grid at 2**22 samples (162^3),
+# with a triangle buffer the example's surface fits; phase 19's slice side.
+DM_SAMPLES = 2**22
+DM_CAPACITY = 2**19
+SLICE = 1024
 
 # Operations per cell of the fused classify_ext kernel, counted from its
 # body (csrc/classify_ext.cu): 103 before the roots, 213 for each of the two
@@ -381,7 +407,8 @@ def device_ms(fn, reps=20, warm=3, match=None):
     card sometimes drops events: a profile with none, or with a kernel
     that is not a whole number of times per call, is taken again (up to
     four profiles, each with a note; the last one that recorded any is
-    used).  Raises if none recorded a kernel of ``fn``."""
+    used, each kernel's mean time counted as many times a call as it ran
+    on average).  Raises if none recorded a kernel of ``fn``."""
     import torch
 
     _flush_l2()
@@ -409,7 +436,14 @@ def device_ms(fn, reps=20, warm=3, match=None):
     if not kept:
         raise RuntimeError("torch.profiler recorded no CUDA kernel of the "
                            "timed call")
-    return sum(e.time_range.elapsed_us() for e in kept) / reps / 1e3
+    # Per kernel name, the mean of the recorded launches times the launches
+    # a call makes: the sum over reps when none was dropped, and no
+    # undercount when the kept profile lost some.
+    per = {}
+    for e in kept:
+        per.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(statistics.fmean(d) * max(1, round(len(d) / reps))
+               for d in per.values()) / 1e3
 
 
 def max_abs_diff(pairs):
@@ -953,6 +987,272 @@ def b2_sweep(name, vol, cas, dev):
             ms=device_ms(run, reps=10, warm=2))), flush=True)
 
 
+def diffmesh_phases(dev, kernels):
+    """Phases 16-19: the differentiable path and the slice on the card.
+    Adds each of B2's, B3's and B4's launches in phase 16's float32
+    lewiner extract to ``kernels`` as ``diffmesh_launches``."""
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch.core import compact, diffmesh, mc, mc33
+    from sdf_torch.core.node import tree_leaves
+    from sdf_torch.core.node import upload as node_upload
+    from sdf_torch.models import fit as fit_mod
+
+    # -- phase 16 -------------------------------------------------------------
+    print("== phase 16: diffmesh.extract of the example model at 162^3 "
+          "(generate()'s 2**22 grid), capacity 2**19, forward and backward",
+          flush=True)
+    axes = grid_axes(example(sp), DM_SAMPLES, torch.float32)
+    dm_bounds = (tuple(float(a[0]) for a in axes),
+                 tuple(float(a[-1]) for a in axes))
+    dm_res = tuple(len(a) for a in axes)
+    dm_cap = DM_CAPACITY
+    dm_wrappers = {"classify_ext": mc33.classify_ext, "ntri": mc.ntri_of,
+                   "indices_of": compact.indices_of}
+
+    def mean_vertex_grads(dtype, variant, device, capacity=dm_cap):
+        """``diffmesh.extract`` and ``mean_vertex``'s gradient with respect to
+        every leaf of the example: ``(verts, n, valid, grads)``.  A weighted
+        sum of the mean vertex is the loss."""
+        node = fit_mod._params(example(sp), dtype, device)
+        leaves = tree_leaves(node)
+        verts, n, valid = diffmesh.extract(node, dm_bounds, dm_res, capacity,
+                                           dtype, variant, device)
+        w = valid.to(verts.dtype)[:, None, None]
+        mv = (verts * w).sum(dim=(0, 1)) / torch.clamp(3.0 * valid.sum(),
+                                                      min=1.0)
+        loss = (mv * torch.arange(1, 4, dtype=dtype, device=device)).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        return verts.detach(), int(n), valid, grads
+
+    def spied(run):
+        """``run()`` with B2's, B3's and B4's wrappers stood in for by spies
+        that keep each call's inputs (cloned, to hold each launch against
+        its plain version afterwards) and call the wrapper.  A wrapper
+        counts its launches on its module's name, which is the spy's while
+        the spies stand: each count is set to 0 just before ``run()`` and
+        read just after, then put back on the wrapper."""
+        seen = []
+        mods = {"classify_ext": mc33, "ntri": mc, "indices_of": compact}
+        attrs = {"classify_ext": "classify_ext", "ntri": "ntri_of",
+                 "indices_of": "indices_of"}
+        spies = {}
+        for name, fn in dm_wrappers.items():
+            def call(*a, _name=name, _fn=fn, **k):
+                seen.append((_name, [x.detach().clone() if torch.is_tensor(x)
+                                     else x for x in a], k))
+                return _fn(*a, **k)
+
+            call.launches = 0
+            spies[name] = call
+            setattr(mods[name], attrs[name], call)
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in dm_wrappers.items():
+                setattr(mods[name], attrs[name], fn)
+                fn.launches = spies[name].launches
+        return out, {k: s.launches for k, s in spies.items()}, seen
+
+    def hold_launches(seen, label):
+        """Each captured launch's output against its plain version on the
+        same input (these launches come after the counts were read)."""
+        for name, a, k in seen:
+            if name == "classify_ext":
+                same = torch.equal(mc33.classify_ext(*a, **k),
+                                   mc33._classify_ext_plain(*a, **k))
+            elif name == "ntri":
+                table = mc.get_tables(*a[1:]).on(a[0].device, "ntri")
+                same = torch.equal(mc.ntri_of(*a, **k),
+                                   mc._ntri_plain(a[0], table))
+            else:
+                ik, tk = compact.indices_of(*a, **k)
+                ip, tp = compact._indices_of_plain(*a, **k)
+                same = torch.equal(ik, ip) and int(tk) == int(tp)
+            check(same, "%s: the %s launch equals its plain version on its "
+                  "input %s" % (label, name, tuple(a[0].shape)))
+
+    print("  grid %s over %s, capacity %d" % (dm_res, dm_bounds, dm_cap))
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        eps = torch.finfo(dt).eps
+        for variant in ("lewiner", "fast"):
+            label = "extract %s %s" % (name, variant)
+            (verts, n, valid, grads), counts, seen = spied(
+                lambda: mean_vertex_grads(dt, variant, dev))
+            want = {"classify_ext": int(variant == "lewiner"), "ntri": 2,
+                    "indices_of": 1}
+            check(counts == want, "%s: launches %s (B2 once under lewiner, "
+                  "B3 twice, B4 once)" % (label, counts))
+            hold_launches(seen, label)
+            if dt == torch.float32 and variant == "lewiner":
+                for k, v in counts.items():
+                    kernels[k]["diffmesh_launches"] = v
+                # The three kernels' device time on this path's inputs,
+                # taken before the profiled runs below (torch.profiler on
+                # the card drops events more often after several).
+                for kname, a, k in seen:
+                    fn = dm_wrappers[kname]
+                    ms = device_ms(lambda: fn(*a, **k))
+                    print("  %s on %s: kernel_ms %.4f" % (kname,
+                                                         tuple(a[0].shape),
+                                                         ms))
+            print("  %s: %d triangles (generate() at 2**22: %d), %d kept"
+                  % (label, n, TRIS_2P22, int(valid.sum())))
+            t0 = time.time()
+            cv, cn, cvalid, cgrads = mean_vertex_grads(dt, variant, "cpu")
+            cpu_s = time.time() - t0
+            check(n == cn and torch.equal(valid.cpu(), cvalid),
+                  "%s: n and valid equal to the device='cpu' run (%.1f s)"
+                  % (label, cpu_s))
+            # Tolerances: vertices 8 eps of their scale (the lerp is the same
+            # IEEE ops on both sides, so bit-equal is expected and printed);
+            # leaf gradients sum millions of contributions in another order
+            # on the card (index_put's accumulation, reductions): float64
+            # rtol 1e-9, float32 1e-3 of the largest gradient.
+            scale = float(cv.abs().max())
+            verr = float((verts.cpu() - cv).abs().max())
+            check(verr <= 8 * eps * scale,
+                  "%s: vertices within 8 eps of the CPU's (max |diff| %g, %s)"
+                  % (label, verr, "bit-equal" if verr == 0 else "not "
+                     "bit-equal"))
+            gmax = max(float(g.abs().max()) for g in cgrads)
+            if dt == torch.float64:
+                ok = all(torch.allclose(g.cpu(), c, rtol=1e-9,
+                                        atol=1e-12 * gmax)
+                         for g, c in zip(grads, cgrads))
+            else:
+                ok = all(float((g.cpu() - c).abs().max()) <= 1e-3 * gmax
+                         for g, c in zip(grads, cgrads))
+            gerr = max(float((g.cpu() - c).abs().max())
+                       for g, c in zip(grads, cgrads))
+            check(ok, "%s: the %d leaf gradients match the CPU's (max |diff| "
+                  "%g, largest gradient %g)" % (label, len(grads), gerr, gmax))
+            # Warm wall times: forward (extract and the probe), backward.
+            fw, bw = [], []
+            for _ in range(4):
+                node = fit_mod._params(example(sp), dt, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mv = diffmesh.mean_vertex(node, dm_bounds, dm_res, dm_cap, dt,
+                                          variant, dev)
+                loss = (mv * torch.arange(1, 4, dtype=dt, device=dev)).sum()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                torch.autograd.grad(loss, tree_leaves(node))
+                torch.cuda.synchronize()
+                fw.append((t1 - t0) * 1e3)
+                bw.append((time.perf_counter() - t1) * 1e3)
+            print("  %s: forward %.3f ms, backward %.3f ms (warm medians of "
+                  "3)" % (label, statistics.median(fw[1:]),
+                          statistics.median(bw[1:])))
+            if variant == "lewiner":
+                # Where the card's time goes: one profiled forward and
+                # backward, the largest kernels by name.
+                wall, busy, per = timeline(
+                    lambda: mean_vertex_grads(dt, variant, dev))
+                print("  %s profiled: wall %.2f ms, card busy %.3f ms, idle "
+                      "%.1f%%" % (label, wall, busy,
+                                  100 - 100 * busy / wall))
+                for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+                    print("    device %.4f ms  %s" % (v, k[:100]))
+            del verts, valid, grads, cv, cvalid, cgrads, seen
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, n, valid, _ = mean_vertex_grads(torch.float32, "lewiner", dev,
+                                           capacity=None)
+    default_cap = 4 * max(dm_res) ** 2
+    check(n > default_cap and int(valid.sum()) == default_cap and any(
+        "capacity" in str(w.message) for w in caught),
+        "the default capacity 4 * r^2 = %d overflows with a warning (n = %d)"
+        % (default_cap, n))
+
+    # -- phase 17 -------------------------------------------------------------
+    print("== phase 17: examples/fit_sphere.py's loop: 300 fit_step calls, "
+          "sphere(0.5) fitted to the example model, 8,192 points, float32",
+          flush=True)
+    pts = np.random.default_rng(0).uniform(-1.5, 1.5, (8192, 3))
+
+    def fit_setup(device):
+        p, lr = node_upload([pts, np.asarray(0.05)], torch.float32, device)
+        return p, example(sp)(p)[:, 0].detach(), lr
+
+    p, t, lr = fit_setup(dev)
+    cp, ct, clr = fit_setup("cpu")
+    node, loss0 = fit_mod.fit_step(sp.sphere(0.5), p, t, lr)
+    cnode, closs0 = fit_mod.fit_step(sp.sphere(0.5), cp, ct, clr)
+    first = [w.detach().cpu() for w in tree_leaves(node)]
+    cfirst = [w.detach() for w in tree_leaves(cnode)]
+    check(torch.allclose(loss0.cpu(), closs0, rtol=1e-5) and all(
+        torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+        for a, b in zip(first, cfirst)),
+        "the first step's loss (%.6g) and leaves equal the device='cpu' "
+        "step's within rtol 1e-5 (float32 sums in another order)"
+        % float(loss0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(299):
+        node, loss = fit_mod.fit_step(node, p, t, lr)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 299
+    radius = float(tree_leaves(node)[-1].detach())
+    check(float(loss) < float(loss0), "the loss falls: %.6g after 300 steps "
+          "from %.6g; radius %.4f" % (float(loss), float(loss0), radius))
+
+    def twenty_steps():
+        nd = node
+        for _ in range(20):
+            nd, _ = fit_mod.fit_step(nd, p, t, lr)
+
+    wall, busy, _ = timeline(twenty_steps)
+    print("  fit_step: %.4f ms a step (299 warm steps); 20 profiled steps "
+          "%.2f ms wall, card busy %.3f ms, idle %.1f%%"
+          % (step_ms, wall, busy, 100 - 100 * busy / wall))
+
+    # -- phase 18 -------------------------------------------------------------
+    print("== phase 18: fit_chamfer: sphere(1.0) to a 384-point cloud on "
+          "radius 1.2, resolution 20, 80 steps, float64", flush=True)
+    rs = np.random.RandomState(11)
+    cloud = rs.normal(size=(384, 3))
+    cloud = 1.2 * cloud / np.linalg.norm(cloud, axis=1, keepdims=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    node, closs = fit_mod.fit_chamfer(
+        sp.sphere(1.0), cloud, ((-1.6,) * 3, (1.6,) * 3), steps=80, lr=0.05,
+        resolution=20, dtype=torch.float64, device=dev)
+    chamfer_s = time.perf_counter() - t0
+    radius = float(tree_leaves(node)[-1].detach())
+    check(abs(radius - 1.2) < 0.1 and closs < 0.25,
+          "radius %.4f within 0.1 of 1.2, chamfer %.4g (%.1f ms a step)"
+          % (radius, closs, chamfer_s * 1e3 / 80))
+
+    # -- phase 19 -------------------------------------------------------------
+    print("== phase 19: sample_slice of the example model at 1024 x 1024",
+          flush=True)
+    a, extent, sax = sp.sample_slice(example(sp), SLICE, SLICE, z=0.1,
+                                     device=dev)
+    ca, cextent, csax = sp.sample_slice(example(sp), SLICE, SLICE, z=0.1,
+                                        device="cpu")
+    serr = float(np.abs(a - ca).max())
+    check(a.shape == (SLICE, SLICE) and bool(np.isfinite(a).all())
+          and extent == cextent and sax == csax and serr <= 8 * np.finfo(
+              np.float32).eps * float(np.abs(ca).max()),
+          "a %s, extent %s and axes %r equal to the device='cpu' call; "
+          "values within 8 eps32 of its scale (max |diff| %g, %s)"
+          % (a.shape, tuple(round(float(e), 4) for e in extent), sax, serr,
+             "bit-equal" if serr == 0 else "not bit-equal"))
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sp.sample_slice(example(sp), SLICE, SLICE, z=0.1, device=dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    print("  sample_slice %d x %d float32: %.3f ms (warm median of 4, bounds "
+          "memoized)" % (SLICE, SLICE, statistics.median(ts[1:])))
+
+
 def main():
     import numpy as np
     import torch
@@ -978,6 +1278,14 @@ def main():
         return slab_sweep(dev)
     if "--tile-sweep" in sys.argv[1:]:
         return tile_sweep(dev)
+    if "--diffmesh" in sys.argv[1:]:
+        _build.build_many([("ntri", _build.source("ntri.cu")),
+                           ("compact", _build.source("compact.cu")),
+                           ("classify_ext", mc33.kernel_source())])
+        diffmesh_phases(dev, {k: {} for k in ("classify_ext", "ntri",
+                                              "indices_of")})
+        print(card_line())
+        return 0
     kernels = {}
 
     # -- phase 1 ---------------------------------------------------------------
@@ -2227,12 +2535,14 @@ def main():
             "no Pillow or scipy on this machine" if not have_pil
             else "no DejaVuSans.ttf in the XDG font directories"))
 
+    diffmesh_phases(dev, kernels)
+
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
                           "eval_classify_fields"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    more = ["routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
+    more = ["diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
             "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
             "kernel_only_ms_all_rows"]
     print(json.dumps({"kernels": [

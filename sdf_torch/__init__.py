@@ -14,11 +14,16 @@ STL/OBJ/PLY output; the model zoo; the whole 3D and 2D DSL with
 ``extrude``/``revolve``, text and image textures, mesh SDFs (``Mesh``) and
 reference-style custom closures.  Expressions that need a gather (a
 texture or mesh-grid lookup, a polygon, a closure) run on the card too:
-their fields are recorded ahead and read by the eval kernels.
+their fields are recorded ahead and read by the eval kernels.  The
+differentiable path: ``core.diffmesh.extract``/``mean_vertex``,
+``models.fit`` (``fit_step``, ``fit``, ``fit_chamfer``) and
+``SDF3.gradient``/``normal``, with torch autograd and JAX's gradients;
+and the debug slice, ``sample_slice``/``show_slice``.  Tests run them with
+``device="cpu"``; ``chip_smoke.py`` phases 16-19 run them on the card.
 
-Still to come (ROADMAP.md): ``sample_slice``/``show_slice`` (A13),
-differentiable meshing and fitting (A12), multi-GPU ``mesh=`` (A14) and
-the generation of the MC33 tables (A17).
+Still to come (ROADMAP.md): multi-GPU ``mesh=`` and the sharded fitting
+forms (A14), which raise ``NotImplementedError``, and the generation of
+the MC33 tables (A17).
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it
@@ -113,6 +118,7 @@ from .ops.textures import (
     text,
 )
 
-from .core.engine import generate, generate_mesh, save
+from .core.engine import (generate, generate_mesh, save, sample_slice,
+                          show_slice)
 
 from .io.stl import write_binary_stl

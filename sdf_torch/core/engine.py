@@ -669,3 +669,57 @@ def save(path, sdf, *args, **kwargs):
     else:
         meshfmt.write_mesh(path, points)
     return points
+
+
+def sample_slice(sdf, w=1024, h=1024, x=None, y=None, z=None, bounds=None,
+                 dtype=None, device=None):
+    """Sample one axis-aligned plane of the field for debugging (see
+    sdf_tpu.core.engine.sample_slice).
+
+    Exactly one of x/y/z fixes the plane; the two free axes carry ``w`` and
+    ``h`` samples (ascending axis order).  Returns ``(a, extent, axes)``:
+    ``a[i, j]`` (float64 numpy) the distance at (first_free[i],
+    second_free[j]), ``extent``/``axes`` ready for ``imshow``.  One torch
+    evaluation over the ``(w, 1) x (1, h)`` plane on ``device`` (the card
+    when None), no point array materialized."""
+    dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
+    if bounds is None:
+        bounds = _estimate_bounds(sdf, dtype)
+    lo, hi = bounds
+
+    fixed = {0: x, 1: y, 2: z}
+    chosen = [a for a, v in fixed.items() if v is not None]
+    if len(chosen) != 1:
+        raise Exception("x, y, or z position must be specified")
+    axis = chosen[0]
+    free = [a for a in range(3) if a != axis]
+
+    spans = {a: np.linspace(lo[a], hi[a], n) for a, n in zip(free, (w, h))}
+    coords = [None] * 3
+    coords[axis], coords[free[0]], coords[free[1]] = upload(
+        [np.asarray(fixed[axis], np.float64).reshape(1, 1),
+         spans[free[0]][:, None], spans[free[1]][None, :]], dtype, device)
+    with torch.no_grad():
+        d = cast(sdf, dtype, device)(Points(*coords))
+        a = torch.as_tensor(d).broadcast_to((w, h))
+        a = node.fetch([a])[0].astype(np.float64)
+    s1, s2 = spans[free[0]], spans[free[1]]
+    extent = (s2[0], s2[-1], s1[0], s1[-1])
+    axes = "XYZ"[free[1]] + "XYZ"[free[0]]
+    return a, extent, axes
+
+
+def show_slice(*args, **kwargs):
+    """Plot a slice with matplotlib (imported on the call); ``abs=True``
+    shows |d|."""
+    import matplotlib.pyplot as plt
+
+    show_abs = kwargs.pop("abs", False)
+    a, extent, axes = sample_slice(*args, **kwargs)
+    im = plt.imshow(np.abs(a) if show_abs else a, extent=extent,
+                    origin="lower")
+    plt.xlabel(axes[0])
+    plt.ylabel(axes[1])
+    plt.colorbar(im)
+    plt.show()

@@ -10,6 +10,11 @@ Two phases with one host sync between them, as in the JAX package:
     interpolate one vertex per edge and resolve each triangle's three edge
     ids to compacted vertex ranks.
 
+The triangle-soup form of the JAX package (``count``, ``emit``,
+``interpolate_slots``) serves the differentiable path: the same kernels
+(B2, B3, B4) give its integer parts, and torch indexing and arithmetic its
+vertices, so autograd reaches the volume.
+
 Vertices are fractional index coordinates; the engine maps them to world
 space.  Two table bundles: "lewiner" (generate()'s default: 5,904 extended
 codes from ``mc33.classify_ext``, up to 10 triangles a cell) and the fixed
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..ops.vecmath import clip
 from . import compact
 from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, NTRI_TABLE, TRI_TABLE
 from .node import upload
@@ -59,6 +65,7 @@ class Tables:
         self.ntri_u8[: self.ntri.size] = self.ntri
         self.ncase = tri_table.shape[0]
         self.max_tris = tri_table.shape[1]
+        self.nsv = self.max_tris * 3  # slot vertices a cell
         self.case_bits = int(self.ncase - 1).bit_length()
         self.tf3 = np.maximum(tri_table, 0)  # padding clamped to edge 0
         # (ncase * max_tris,) packed 3x4-bit cube-edge ids per (case, slot).
@@ -66,6 +73,21 @@ class Tables:
             self.tf3[:, :, 0] | (self.tf3[:, :, 1] << 4)
             | (self.tf3[:, :, 2] << 8)
         ).reshape(-1).astype(np.int32)
+        # The soup emit's per-case interpolation table (``interpolate_slots``):
+        # [ca | cb | pax pay paz | pbx pby pbz], each nsv wide: the corner
+        # numbers of each slot vertex's edge and their offsets in the cell.
+        flat = self.tf3.reshape(self.ncase, -1)
+        ca = EDGE_CORNERS[flat, 0]
+        cb = EDGE_CORNERS[flat, 1]
+        self.wide_pack = np.concatenate(
+            [
+                ca,
+                cb,
+                CORNER_OFFSETS[ca].transpose(0, 2, 1).reshape(self.ncase, -1),
+                CORNER_OFFSETS[cb].transpose(0, 2, 1).reshape(self.ncase, -1),
+            ],
+            axis=1,
+        ).astype(np.float64)
         self._dev = {}
 
     def classify(self, volume, level=0.0):
@@ -76,13 +98,14 @@ class Tables:
 
         return mc33.classify_ext(volume, level)
 
-    def on(self, device, name):
+    def on(self, device, name, dtype=None):
         """A table as a tensor on ``device`` (cached): uint8 for the byte
-        tables, int32 for the others."""
-        key = (str(device), name)
+        tables, int32 for the others unless ``dtype`` says otherwise."""
+        key = (str(device), name, dtype)
         if key not in self._dev:
             a = getattr(self, name)
-            dtype = torch.uint8 if a.dtype == np.uint8 else torch.int32
+            if dtype is None:
+                dtype = torch.uint8 if a.dtype == np.uint8 else torch.int32
             self._dev[key] = upload([a], dtype, device)[0]
         return self._dev[key]
 
@@ -207,6 +230,124 @@ def _cell_cases(volume, level=0.0):
                         oz: nz - 1 + oz]
         case |= (corner < level).to(torch.int32) << c
     return case
+
+
+# --- triangle-soup emit ------------------------------------------------------
+#
+# The differentiable path (``core.diffmesh``) meshes through these: only the
+# corner gather and the lerp carry gradients; case codes (kernel B2 or the
+# corner compares), counts (B3) and the compacted cell indices (B4) are
+# integers computed from the detached volume.
+
+
+def _gather_corners(volume, ci, cj, ck):
+    """The 8 corner values of each listed cell, as 8 1D tensors (one
+    gather of the flattened volume, differentiable)."""
+    nx, ny, nz = volume.shape
+    lin0 = (ci * ny + cj) * nz + ck
+    doff = [(ox * ny + oy) * nz + oz for ox, oy, oz in CORNER_OFFSETS.tolist()]
+    idx = torch.cat([lin0 + d for d in doff])
+    return list(_take(volume.reshape(-1), 0, idx).reshape(8, -1))
+
+
+def _take(src, dim, idx):
+    """``src`` indexed by the 1D ``idx`` along ``dim``, differentiable.
+    ``index_select``, whose backward adds with ``index_add_``: the padding
+    of a compacted list repeats one index hundreds of thousands of times,
+    which advanced indexing's backward (a sort, then a serial sum of each
+    run of equal indices) spends tens of ms on, on the card."""
+    return torch.index_select(src, dim, idx)
+
+
+def _classify(volume, variant):
+    """Case codes of the detached volume: integers, constant under
+    differentiation (kernel B2 under lewiner on the card)."""
+    return get_tables(variant).classify(volume.detach().contiguous())
+
+
+def count(volume, cell_mask, tile, case=None, variant="default"):
+    """Phase 1 of the soup emit: ``(total_triangles, per_tile_counts,
+    active_cells, case_codes)`` (see sdf_tpu.core.mc.count).  ``cell_mask``
+    zeroes culled cells; ``tile`` is the cell tile size; ``case=`` takes
+    precomputed codes."""
+    if case is None:
+        case = _classify(volume, variant)
+    ntri = ntri_of(case, variant) * cell_mask.to(torch.int32)
+    cx, cy, cz = ntri.shape
+    px, py, pz = (-cx) % tile, (-cy) % tile, (-cz) % tile
+    padded = torch.nn.functional.pad(ntri, (0, pz, 0, py, 0, px))
+    tx, ty, tz = (cx + px) // tile, (cy + py) // tile, (cz + pz) // tile
+    per_tile = padded.reshape(tx, tile, ty, tile, tz, tile).sum(dim=(1, 3, 5))
+    return ntri.sum(), per_tile, (ntri > 0).sum(), case
+
+
+def emit(volume, cell_mask, capacity, cell_capacity=None, case=None,
+         variant="default"):
+    """Phase 2 of the soup emit: ``(verts (9, capacity), n_tris)`` in
+    fractional index coordinates, row ``v * 3 + c`` holding component c of
+    vertex v, triangles in ascending (cell, slot) order; columns
+    ``[0:n_tris]`` are valid (see sdf_tpu.core.mc.emit).  Two-level
+    compaction: the active cells first (kernel B4), then their slots
+    (``compact.ragged_expand``).  Gradients reach ``volume`` through the
+    corner gather and the lerp."""
+    if cell_capacity is None:
+        # n_active_cells <= n_triangles: the triangle capacity bounds it.
+        cell_capacity = capacity
+    if case is None:
+        case = _classify(volume, variant)
+    ntri = ntri_of(case, variant) * cell_mask.to(torch.int32)
+    cell_idx, n_cells = compact.indices_of((ntri > 0).reshape(-1),
+                                           cell_capacity)
+    cell_idx = cell_idx.to(torch.int64)
+    cell_live = torch.arange(cell_capacity, device=case.device) < n_cells
+    _, cy, cz = case.shape
+    ci = cell_idx // (cy * cz)
+    cj = (cell_idx // cz) % cy
+    ck = cell_idx % cz
+    cell_case = case.reshape(-1)[cell_idx]
+    cell_ntri = torch.where(cell_live, ntri.reshape(-1)[cell_idx], 0)
+    corner = _gather_corners(volume, ci, cj, ck)
+    base = (ci.to(volume.dtype), cj.to(volume.dtype), ck.to(volume.dtype))
+    return interpolate_slots(corner, base, cell_case, cell_ntri, capacity,
+                             cell_capacity, variant)
+
+
+def interpolate_slots(corner, base, cell_case, cell_ntri, capacity,
+                      cell_capacity, variant="default"):
+    """The soup emit's tail, shared with the tiles' ``sparse._emit_tiles``:
+    every slot vertex of every listed cell interpolated on its edge, then
+    the live (cell, slot) pairs expanded in order.  ``corner``: 8
+    ``(cell_capacity,)`` corner values; ``base``: 3 cell base coordinates.
+    Returns ``(verts (9, capacity), n_tris)``.
+
+    The JAX package's op order, term for term, so float64 outputs match:
+    the corner value of a slot's edge end is ``sum((ca == c) * cn[:, c])``,
+    then ``t = va / where(denom == 0, 1, denom)``, clipped to [0, 1] (a tie
+    splits its gradient, as ``jnp.clip``'s does), then ``bs + pa + t * (pb
+    - pa)``.  One pass over all cells: the JAX package's chunks exist for
+    the TPU's 128-lane padding of the (cells, 3 * max_tris) temporaries,
+    which a card does not pad."""
+    tab = get_tables(variant)
+    N = tab.nsv
+    cn = torch.stack(corner, dim=1)  # (cell_capacity, 8)
+    p = tab.on(cn.device, "wide_pack", cn.dtype)[cell_case.to(torch.int64)]
+    ca = p[:, 0:N]
+    cb = p[:, N: 2 * N]
+    va = sum((ca == c) * cn[:, c][:, None] for c in range(8))
+    vb = sum((cb == c) * cn[:, c][:, None] for c in range(8))
+    denom = va - vb
+    t = clip(va / torch.where(denom == 0, 1.0, denom), 0.0, 1.0)
+    outs = []
+    for c in range(3):
+        pa = p[:, (2 + c) * N: (3 + c) * N]
+        pb = p[:, (5 + c) * N: (6 + c) * N]
+        outs.append(base[c][:, None] + pa + t * (pb - pa))
+    # Columns [c * N + slot * 3 + v] -> rows v * 3 + c, each holding the
+    # slot-major blocks [slot * cell_capacity + cell].
+    wide = torch.cat(outs, dim=1).T.reshape(3, tab.max_tris, 3, cell_capacity)
+    staged = wide.permute(2, 0, 1, 3).reshape(9, tab.max_tris * cell_capacity)
+    ctri, slot, n_tris = compact.ragged_expand(cell_ntri, capacity)
+    return _take(staged, 1, slot * cell_capacity + ctri), n_tris
 
 
 # --- indexed emit --------------------------------------------------------------

@@ -108,7 +108,9 @@ class Points:
         return Points(*[-a for a in self.c])
 
     def __abs__(self):
-        return Points(*[torch.abs(a) for a in self.c])
+        from ..ops.vecmath import _abs
+
+        return Points(*[_abs(a) for a in self.c])
 
     def hmax(self):
         return functools.reduce(torch.maximum, self.c)
@@ -191,7 +193,9 @@ def upload(arrays, dtype, device):
     if device.type != "cuda":
         return [torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
                 for a in arrays]
-    host = [torch.from_numpy(np.ascontiguousarray(a)).to(dtype) for a in arrays]
+    # (np.ascontiguousarray makes a 0-d array 1-d: keep each array's shape.)
+    host = [torch.from_numpy(np.ascontiguousarray(a)).to(dtype).reshape(
+        np.shape(a)) for a in arrays]
     if not host:
         return []
     flat = torch.cat([h.reshape(-1) for h in host]).pin_memory()
@@ -344,6 +348,35 @@ class SDF3(_Node):
         from . import engine
 
         return engine.save(path, self, *args, **kwargs)
+
+    def show_slice(self, *args, **kwargs):
+        from . import engine
+
+        return engine.show_slice(self, *args, **kwargs)
+
+    def gradient(self, p, dtype=None, device=None):
+        """Spatial gradient of the field at ``(N, 3)`` points: one autograd
+        pass over the sum of the distances (the field is pointwise, so each
+        point's gradient is its own).  ``dtype`` defaults to float32; the
+        points go to ``device`` as in ``__call__`` (a tensor keeps its
+        own)."""
+        from .engine import resolve_dtype
+
+        dtype = resolve_dtype(dtype)
+        if not isinstance(p, torch.Tensor) or device is not None:
+            p = torch.as_tensor(p, device=resolve_device(device))
+        q = p.detach().to(dtype).requires_grad_(True)
+        with torch.enable_grad():
+            d = cast(self, dtype, q.device)(q)
+            (g,) = torch.autograd.grad(d.sum(), q)
+        return g
+
+    def normal(self, p, dtype=None, device=None):
+        """Unit surface normal (the normalized gradient) at ``(N, 3)``
+        points; a zero gradient stays zero."""
+        g = self.gradient(p, dtype, device)
+        n = torch.linalg.vector_norm(g, dim=1, keepdim=True)
+        return g / torch.where(n == 0, 1.0, n)
 
 
 class SDF2(_Node):

@@ -21,8 +21,8 @@ generated body holds whole runs ``eval_tiles_and_classify_batched``
 version.  The JAX module's ``_eval_tiles_auto``, ``_race`` and
 ``_BATCHED_CZ`` (a ladder of block sizes that fit on-chip memory and a
 timed race against the compiler's own evaluation) have no counterpart.
-The soup form ``_emit_tiles`` is not ported either: ``generate()`` uses
-only the indexed emit.
+``generate()`` uses the indexed emit; the soup form ``_emit_tiles`` shares
+``mc.interpolate_slots`` with the differentiable path.
 """
 
 from __future__ import annotations
@@ -122,6 +122,39 @@ def _count_tiles(vols, tiles, live, cshape, tile, case=None,
 
 
 _GID_DEV = {}  # (tile, variant, device) -> the tile-local _gid_pack table
+
+
+def _emit_tiles(vols, tiles, live, case, cshape, capacity, cell_capacity,
+                tile, variant="default"):
+    """Tile-local marching cubes as a soup: ``(verts (9, capacity),
+    n_tris)`` in global fractional index coordinates, the layout of
+    ``mc.emit`` (see sdf_tpu.core.sparse._emit_tiles).  A cell's base is
+    ``tiles[t] * tile + local``; the interpolation is
+    ``mc.interpolate_slots``."""
+    TS = tile + 1
+    valid = _cell_valid(tiles, live, cshape, tile)
+    ntri = mc.ntri_of(case, variant) * valid.to(torch.int32)
+    cell_idx, n_cells = compact.indices_of((ntri > 0).reshape(-1),
+                                           cell_capacity)
+    cell_idx = cell_idx.to(torch.int64)
+    cell_live = torch.arange(cell_capacity, device=case.device) < n_cells
+    t_of = cell_idx // (tile * tile * tile)
+    local = cell_idx % (tile * tile * tile)
+    li, rem = local // (tile * tile), local % (tile * tile)
+    lj, lk = rem // tile, rem % tile
+    cell_case = case.reshape(-1)[cell_idx]
+    cell_ntri = torch.where(cell_live, ntri.reshape(-1)[cell_idx], 0)
+    vflat = vols.reshape(-1)
+    corner = [
+        mc._take(vflat, 0,
+                 ((t_of * TS + li + ox) * TS + (lj + oy)) * TS + (lk + oz))
+        for ox, oy, oz in mc.CORNER_OFFSETS.tolist()
+    ]
+    t = tiles.to(torch.int64)[t_of]
+    base = tuple((t[:, a] * tile + loc).to(vols.dtype)
+                 for a, loc in enumerate((li, lj, lk)))
+    return mc.interpolate_slots(corner, base, cell_case, cell_ntri, capacity,
+                                cell_capacity, variant)
 
 
 def _tile_gid_table(tile, variant, device):

@@ -1,6 +1,6 @@
-"""Model zoo: the example workloads as importable functions (counterpart
-of ``sdf_tpu.models``; the fitting helpers of that package wait for the
-differentiable path, ROADMAP A12)."""
+"""Model zoo: the example workloads as importable functions, and the
+fitting step (counterpart of ``sdf_tpu.models``; ``models.fit`` holds
+``fit``, ``fit_chamfer`` and ``make_chamfer_loss`` too)."""
 
 from .zoo import (
     MODELS,
@@ -14,6 +14,7 @@ from .zoo import (
     saddle,
     weave,
 )
+from .fit import fit_step, make_sharded_fit_step
 
 __all__ = [
     "MODELS",
@@ -26,4 +27,6 @@ __all__ = [
     "customizable_box_body",
     "customizable_box_lid",
     "saddle",
+    "fit_step",
+    "make_sharded_fit_step",
 ]

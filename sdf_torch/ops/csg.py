@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.node import Points, as_param, node_k
-from .vecmath import _max, _min, clip
+from .vecmath import _abs, _max, _min, clip
 
 
 def _resolve_k(k_param, b):
@@ -120,7 +120,7 @@ def erode(other, r):
 
 def shell(other, thickness):
     def fn(q, p):
-        return torch.abs(q["other"](p)) - q["thickness"] / 2
+        return _abs(q["other"](p)) - q["thickness"] / 2
 
     return fn, {"other": other, "thickness": as_param(thickness)}
 

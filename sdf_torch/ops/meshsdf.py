@@ -75,7 +75,7 @@ def _tri_block(q, a, b, c, best2, winding):
     eps = 1e-30
 
     def safe_div(num, den):
-        return num / torch.where(torch.abs(den) < eps, eps, den)
+        return num / torch.where(vm._abs(den) < eps, eps, den)
 
     # Region tests, resolved with nested where.
     v_ab = torch.clamp(safe_div(d1, d1 - d3), 0.0, 1.0)

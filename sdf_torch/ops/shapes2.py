@@ -121,7 +121,7 @@ def rounded_rectangle(size, radius, center=ORIGIN):
 def equilateral_triangle():
     def fn(q, p):
         k = 3**0.5
-        p = _vec(torch.abs(p.c[0]) - 1, p.c[1] + 1 / k)
+        p = _vec(vm._abs(p.c[0]) - 1, p.c[1] + 1 / k)
         w = p.c[0] + k * p.c[1] > 0
         vx = (p.c[0] - k * p.c[1]) / 2
         vy = (-k * p.c[0] - p.c[1]) / 2
@@ -289,7 +289,7 @@ def extrude(other, h):
 
     def fn(q, p):
         d = q["other"](p[:, :2])
-        w = _vec(d, torch.abs(p.c[2]) - q["h"] / 2)
+        w = _vec(d, vm._abs(p.c[2]) - q["h"] / 2)
         return _min(_max(w.c[0], w.c[1]), 0) + _length(_pmax(w, 0))
 
     return fn, params
@@ -304,7 +304,7 @@ def extrude_to(a, b, h, e=ease.linear):
         d2 = q["b"](p[:, :2])
         t = e(clip(p.c[2] / q["h"], -0.5, 0.5) + 0.5)
         d = d1 + (d2 - d1) * t
-        w = _vec(d, torch.abs(p.c[2]) - q["h"] / 2)
+        w = _vec(d, vm._abs(p.c[2]) - q["h"] / 2)
         return _min(_max(w.c[0], w.c[1]), 0) + _length(_pmax(w, 0))
 
     return fn, params

@@ -179,7 +179,7 @@ def capped_cylinder(a, b, radius):
         baba = vm._dotv(ba, ba)
         paba = _mdot(pa, ba)
         x = _length(pa * baba - _vmul(ba, paba)) - q["radius"] * baba
-        y = torch.abs(paba - baba * 0.5) - baba * 0.5
+        y = vm._abs(paba - baba * 0.5) - baba * 0.5
         x2 = x * x
         y2 = y * y * baba
         d = torch.where(
@@ -187,7 +187,7 @@ def capped_cylinder(a, b, radius):
             -_min(x2, y2),
             torch.where(x > 0, x2, 0.0) + torch.where(y > 0, y2, 0.0),
         )
-        return torch.sign(d) * vm.sqrt(torch.abs(d)) / baba
+        return torch.sign(d) * vm.sqrt(vm._abs(d)) / baba
 
     return fn, params
 
@@ -199,7 +199,7 @@ def rounded_cylinder(ra, rb, h):
     def fn(q, p):
         d = _vec(
             _length(p[:, :2]) - q["ra"] + q["rb"],
-            torch.abs(p[:, 2]) - q["h"] / 2 + q["rb"],
+            vm._abs(p[:, 2]) - q["h"] / 2 + q["rb"],
         )
         return _min(_max(d.c[0], d.c[1]), 0) + _length(_pmax(d, 0)) - q["rb"]
 
@@ -224,7 +224,7 @@ def capped_cone(a, b, ra, rb):
         paba = _mdot(pa, b_ - a_) / baba
         x = vm.sqrt(_max(papa - paba * paba * baba, 0))
         cax = _max(0, x - torch.where(paba < 0.5, ra_, rb_))
-        cay = torch.abs(paba - 0.5) - 0.5
+        cay = vm._abs(paba - 0.5) - 0.5
         k = rba * rba + baba
         f = clip((rba * (x - ra_) + paba * baba) / k, 0, 1)
         cbx = x - ra_ - f * rba
@@ -306,7 +306,7 @@ def tetrahedron(r):
     def fn(q, p):
         x, y, z = p.c
         return _div_const(
-            _max(torch.abs(x + y) - z, torch.abs(x - y) + z) - q["r"],
+            _max(vm._abs(x + y) - z, vm._abs(x - y) + z) - q["r"],
             float(np.sqrt(3)),
         )
 

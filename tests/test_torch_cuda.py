@@ -821,3 +821,93 @@ def test_gather_generate_syncs_as_before(cuda):
     assert len(msgs) == 2, msgs
     msgs = _count_syncs(lambda: th.polygon_model(sp).generate(**kw))
     assert len(msgs) == 1, msgs
+
+
+# --- the differentiable path -------------------------------------------------
+
+
+def _mean_vertex_grads(f, variant, device, res=33):
+    """diffmesh.extract of ``f`` in float64 and the gradient of a weighted
+    sum of its mean vertex with respect to every leaf."""
+    from sdf_torch.core import diffmesh
+    from sdf_torch.core.node import tree_leaves
+    from sdf_torch.models import fit
+
+    node = fit._params(f, torch.float64, device)
+    bounds = ((-1.6,) * 3, (1.6,) * 3)
+    verts, n, valid = diffmesh.extract(node, bounds, res, None, torch.float64,
+                                       variant, device)
+    w = valid.to(verts.dtype)[:, None, None]
+    mv = (verts * w).sum(dim=(0, 1)) / torch.clamp(3.0 * valid.sum(), min=1.0)
+    loss = (mv * torch.arange(1, 4, dtype=torch.float64, device=device)).sum()
+    grads = torch.autograd.grad(loss, tree_leaves(node))
+    return verts.detach().cpu(), int(n), valid.cpu(), [g.cpu() for g in grads]
+
+
+@pytest.mark.parametrize("variant", ["lewiner", "fast"])
+def test_extract_matches_cpu(cuda, variant):
+    """diffmesh.extract on the card launches B2 (lewiner only), B3 twice and
+    B4 once; n, valid and the vertices are bit-equal to the device='cpu'
+    call, the leaf gradients within rtol 1e-9 (the card sums the gathers'
+    gradients in another order)."""
+    f = sp.sphere(1.0).union(sp.box(1.5), k=0.2)
+    wrappers = (mc33.classify_ext, mc.ntri_of, compact.indices_of)
+    before = [w.launches for w in wrappers]
+    got = _mean_vertex_grads(f, variant, cuda)
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched == [int(variant == "lewiner"), 2, 1]
+    want = _mean_vertex_grads(f, variant, "cpu")
+    assert got[1] == want[1] > 0
+    assert torch.equal(got[2], want[2])
+    assert _same_bits(got[0], want[0])
+    for g, w in zip(got[3], want[3]):
+        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-15)
+
+
+def test_extract_syncs_once(cuda):
+    """The forward waits for the card once (the overflow check reads the
+    triangle total); the backward and a fit step not at all."""
+    from sdf_torch.core import diffmesh
+    from sdf_torch.core.node import tree_leaves
+    from sdf_torch.models import fit
+
+    node = fit._params(th.example(sp), torch.float32, cuda)
+    bounds = ((-1.6,) * 3, (1.6,) * 3)
+    diffmesh.mean_vertex(node, bounds, 24, device=cuda)  # warm the tables
+    out = []
+    msgs = _count_syncs(lambda: out.append(
+        diffmesh.mean_vertex(node, bounds, 24, device=cuda).sum()))
+    assert len(msgs) == 1, msgs
+    msgs = _count_syncs(lambda: torch.autograd.grad(out[0], tree_leaves(node)))
+    assert not msgs, msgs
+    p = torch.rand((512, 3), device=cuda) * 2 - 1
+    t = th.example(sp)(p)[:, 0]
+    fit.fit_step(sp.sphere(0.5), p, t, 0.05)
+    msgs = _count_syncs(lambda: fit.fit_step(sp.sphere(0.5), p, t, 0.05))
+    assert not msgs, msgs
+
+
+def test_fit_step_and_slice_match_cpu(cuda):
+    """One fit step on the card equals the device='cpu' step in float64
+    (rtol 1e-12: reductions in another order); sample_slice's plane is
+    bit-equal to the device='cpu' call."""
+    from sdf_torch.core.node import tree_leaves
+    from sdf_torch.models import fit
+
+    pts = np.random.default_rng(3).uniform(-1.5, 1.5, (2048, 3))
+    out = []
+    for device in (cuda, "cpu"):
+        p = torch.as_tensor(pts, device=device)
+        t = th.example(sp)(p)[:, 0]
+        node, loss = fit.fit_step(sp.sphere(0.8), p, t, 0.05)
+        out.append([loss.cpu()] + [w.detach().cpu() for w in
+                                   tree_leaves(node)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+    for dtype in (torch.float32, torch.float64):
+        a = sp.sample_slice(th.example(sp), 96, 80, y=0.05, dtype=dtype,
+                            device=cuda)
+        b = sp.sample_slice(th.example(sp), 96, 80, y=0.05, dtype=dtype,
+                            device="cpu")
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1:] == b[1:]

@@ -27,6 +27,8 @@ KERNEL_MODULES = [
     "sdf_torch.ops.shapes2",
     "sdf_torch.ops.textures",
     "sdf_torch.ops.meshsdf",
+    "sdf_torch.core.diffmesh",
+    "sdf_torch.models.fit",
 ]
 
 
@@ -41,6 +43,7 @@ def test_import_leaves_jax_out():
         "import sdf_torch.core.sparse, sdf_torch.core.hybrid\n"
         "import sdf_torch.ops.shapes2, sdf_torch.ops.textures\n"
         "import sdf_torch.ops.meshsdf\n"
+        "import sdf_torch.core.diffmesh, sdf_torch.models.fit\n"
         "sdf_torch.core.mc.get_tables('lewiner')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'sdf_tpu'))]\n"
@@ -69,7 +72,8 @@ def test_sources_name_no_jax():
             "sdf_torch/io/meshfmt.py", "sdf_torch/models/zoo.py",
             "sdf_torch/core/sparse.py", "sdf_torch/core/hybrid.py",
             "sdf_torch/ops/shapes2.py", "sdf_torch/ops/textures.py",
-            "sdf_torch/ops/meshsdf.py"} <= names
+            "sdf_torch/ops/meshsdf.py", "sdf_torch/core/diffmesh.py",
+            "sdf_torch/models/fit.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:
