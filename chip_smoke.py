@@ -75,7 +75,25 @@ Phases, each printing its own lines:
  18. fit_chamfer of a sphere to a 384-point cloud on radius 1.2
      (resolution 20, 80 steps, float64): the radius within 0.1 of 1.2;
  19. sample_slice of the example model at 1024 x 1024 on the card against
-     device="cpu".
+     device="cpu";
+ 20. four ranks of torch.distributed on the one card (gloo, device="cuda",
+     spawned after the parent builds every library they load): the
+     certificate of MULTICHIP_r05.json (1,024 triangles, 4 ranks bit-equal
+     to 1, sha256 beside the JAX package's); generate(mesh=) of the
+     example at 2**22 float32 and 2**24 float64 under both variants (z
+     slabs: 291,028 and 731,152 triangles, the 2**24 pin), blobby at 2**26
+     and the gather model of phase 11 with sparse="tiles" (the dealt tile
+     list, kernels B6 and B7) and that model with sparse=False (B1 with
+     fields on each slab), each gathered soup bit-equal as a set to the
+     single-device run on the card and every rank's launches counted;
+     each kernel launch of rank 0 held against its plain version on its
+     own input; extract_sharded at 162^3 in both dtypes (291,028, the
+     valid rows equal to extract's, gradients within tolerance, one host
+     read besides the collectives); fit(mesh=) on fit_sphere.py's 8,192
+     points (the first step equal to the single-device step's, the loss
+     falling over 300 steps, the same leaves on every rank) and one
+     fit_chamfer(mesh=) step; wall times per rank, which time-share the
+     card and are no scaling number.  NCCL does not run: one card.
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -98,7 +116,9 @@ int32 offsets 1 to 3; for B4 the share of its time that the memset of
 its look-back scratch takes.
 Then one JSON line with every kernel (B2's, B3's and B4's entries also
 carry ``diffmesh_launches``, their launches in phase 16's float32 lewiner
-extract), the card line again, and last the result line.  Any failed check raises, and the script exits non-zero
+extract; every entry carries ``sharded_launches``, its launches on rank 0
+in phase 20's full-width runs), the card line again, and last the result
+line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --ptxas`` instead compiles kernels B1 and B6/B7
@@ -123,6 +143,9 @@ default plan's.
 
 ``python3 chip_smoke.py --diffmesh`` builds kernels B2, B3 and B4 and runs
 phases 16 to 19 alone (a few minutes shorter than the whole script).
+
+``python3 chip_smoke.py --sharded`` builds the libraries phase 20 needs and
+runs phase 20 alone.
 
 ``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
 length forced to each of a range of values, on the example's 2**22 grid
@@ -1253,6 +1276,576 @@ def diffmesh_phases(dev, kernels):
           "memoized)" % (SLICE, SLICE, statistics.median(ts[1:])))
 
 
+# -- phase 20: several ranks ---------------------------------------------------
+#
+# Four processes on the one card, each a rank of a gloo process group with
+# device="cuda" (NCCL refuses two ranks on one device).  The parent builds
+# every kernel library the ranks load, computes the single-device references
+# on the card, spawns the ranks, and holds what rank 0 returns against them.
+
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 600
+CERT_SOUP = "1cc04bcef3fd2e4e5b66c164d7907a4d2adb086b85b220201e8f37e1b51235f7"
+TRIS_CERT = 1024
+TRIS_BLOBBY_2P26 = 637600
+FIT_POINTS = 8192
+CHAMFER_BOUNDS = ((-1.6,) * 3, (1.6,) * 3)
+# The kernels of the kernels line, by the wrapper that launches each.
+SHARDED_KERNELS = ["eval_classify", "classify_ext", "ntri", "indices_of",
+                   "indices_and_ranktable_of", "eval_tiles_batched",
+                   "eval_tiles", "eval_classify_fields"]
+
+
+def raw_hash(pts):
+    """sha256 of a triangle soup sorted by triangle, unrounded (the
+    certificate's form): equal for soups equal bit for bit in any order."""
+    import numpy as np
+
+    tris = np.asarray(pts, np.float64).reshape(-1, 9)
+    tris = tris[np.lexsort(tris.T[::-1])]
+    return hashlib.sha256(np.ascontiguousarray(tris).tobytes()).hexdigest()
+
+
+def sharded_runs(sp, zoo):
+    """The full-width runs of phase 20: label -> (expression, generate()
+    keywords, the launches each rank must make: B1, B2, B3, B4, B5, B6,
+    B7, B1 with fields)."""
+    import torch
+
+    g = gather_models(sp)["rotated"]
+    slab = lambda b2: [1, b2, 2, 1, 1, 0, 0, 0]
+    tiles = lambda b6, b7: [0, 1, 2, 1, 1, b6, b7, 0]
+    return {
+        "example 2^22 f32 lewiner": (example(sp), dict(samples=2**22),
+                                     slab(1)),
+        "example 2^22 f32 fast": (example(sp), dict(samples=2**22,
+                                                    mc_variant="fast"),
+                                  slab(0)),
+        "example 2^24 f64 lewiner": (example(sp), dict(
+            samples=2**24, dtype=torch.float64), slab(1)),
+        "example 2^24 f64 fast": (example(sp), dict(
+            samples=2**24, dtype=torch.float64, mc_variant="fast"), slab(0)),
+        "blobby 2^26 tiles": (zoo.blobby(), dict(samples=2**26,
+                                                 sparse="tiles"),
+                              tiles(1, 0)),
+        "gather 2^22 tiles": (g, dict(samples=2**22, bounds=GATHER_BOUNDS,
+                                      sparse="tiles"), tiles(0, 1)),
+        "gather 2^22 sparse=False": (g, dict(samples=2**22,
+                                             bounds=GATHER_BOUNDS,
+                                             sparse=False),
+                                     [0, 1, 2, 1, 1, 0, 0, 1]),
+    }
+
+
+def sharded_sources(sp, zoo, _build, eval_classify, hybrid, mc33):
+    """Every kernel library the ranks of phase 20 load."""
+    g = gather_models(sp)["rotated"]
+    return [
+        ("eval_classify", eval_classify.kernel_source(example(sp))),
+        ("eval_classify", eval_classify.kernel_source(
+            hybrid.to_kernel_tree(g), 1)),
+        ("eval_tiles", eval_classify.tile_kernel_source(example(sp))),
+        ("eval_tiles", eval_classify.tile_kernel_source(zoo.blobby())),
+        ("eval_tiles", eval_classify.tile_kernel_source(
+            hybrid.to_kernel_tree(g), 1)),
+        ("ntri", _build.source("ntri.cu")),
+        ("compact", _build.source("compact.cu")),
+        ("classify_ext", mc33.kernel_source()),
+    ]
+
+
+def extract_grads(sp, diffmesh, node_mod, dtype, device, bounds, res,
+                  mesh=None):
+    """extract (or extract_sharded on ``mesh``) of the example, lewiner,
+    capacity DM_CAPACITY, and the leaf gradients of its weighted mean
+    vertex: ``(hash of the valid rows, n, grads)``."""
+    import torch
+
+    node = node_mod.cast(example(sp), dtype, device)
+    leaves = [w.requires_grad_(True) for w in node_mod.tree_leaves(node)]
+    if mesh is None:
+        verts, n, valid = diffmesh.extract(node, bounds, res, DM_CAPACITY,
+                                           dtype, device=device)
+    else:
+        verts, n, valid = diffmesh.extract_sharded(
+            node, bounds, res, DM_CAPACITY, dtype, mesh=mesh, device=device)
+    w = valid.to(dtype)[:, None, None]
+    mv = (verts * w).sum(dim=(0, 1)) / torch.clamp(3.0 * valid.sum(),
+                                                    min=1.0)
+    loss = (mv * torch.arange(1, 4, dtype=dtype, device=device)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return (raw_hash(verts.detach()[valid].cpu().numpy()), int(n),
+            [g.detach().cpu() for g in grads])
+
+
+def fit_points():
+    import numpy as np
+
+    return np.random.default_rng(0).uniform(-1.5, 1.5, (FIT_POINTS, 3))
+
+
+def chamfer_cloud():
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    cloud = rs.normal(size=(384, 3))
+    return 1.2 * cloud / np.linalg.norm(cloud, axis=1, keepdims=True)
+
+
+def sharded_reference(dev):
+    """The single-device runs on the card that phase 20's ranks are held
+    against."""
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch.core import diffmesh
+    from sdf_torch.core import node as node_mod
+    from sdf_torch.models import fit as fit_mod, zoo
+
+    ref = {}
+    for label, (f, kw, _) in sharded_runs(sp, zoo).items():
+        pts = sp.generate(f, verbose=False, device=dev, **kw)
+        ref[label] = (len(pts) // 3, raw_hash(pts), soup_hash(pts))
+        del pts
+    for dt in (torch.float32, torch.float64):
+        ref[("extract", dt)] = extract_grads(sp, diffmesh, node_mod, dt, dev,
+                                             *sharded_dm_grid(sp))
+    node, loss = fit_mod.fit(sp.sphere(0.5), example(sp), fit_points(),
+                             steps=1, lr=0.05, device=dev)
+    ref["fit"] = (loss, [w.detach().cpu() for w in
+                         node_mod.tree_leaves(node)])
+    node, loss = fit_mod.fit_chamfer(
+        sp.sphere(1.0), chamfer_cloud(), CHAMFER_BOUNDS, steps=1, lr=0.05,
+        resolution=20, dtype=torch.float64, device=dev)
+    ref["chamfer"] = (loss, float(node_mod.tree_leaves(node)[-1].detach()))
+    return ref
+
+
+def sharded_rank(rank, world, work, device_type):
+    """One rank of phase 20 on ``device_type``: every sharded run, rank 0
+    writing what the parent compares (``work/results.pkl``) and holding
+    each kernel launch of its own slab and tiles against the plain
+    version."""
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import sdf_torch as sp
+    from sdf_torch import parallel
+    from sdf_torch.core import (compact, diffmesh, eval_classify, hybrid, mc,
+                                mc33)
+    from sdf_torch.core import node as node_mod
+    from sdf_torch.models import fit as fit_mod, zoo
+    from sdf_torch.parallel import multihost
+
+    torch.set_num_threads(2)
+    parallel.initialize(backend="gloo", init_method="file://%s/store" % work,
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    dev = torch.device(device_type)
+    mesh = parallel.make_mesh(device_type)
+    group = mesh.get_group()
+    lead = rank == 0
+    out = {"walls": {}, "launches": {}}
+
+    def say(msg):
+        if lead:
+            print("  " + msg, flush=True)
+
+    def timed(label, fn):
+        # Every rank starts together (rank 0's checks between the runs
+        # would otherwise count as the others' wait in a collective).
+        multihost.all_reduce_host(np.zeros(1), "sum", group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out["walls"][label] = time.perf_counter() - t0
+        return r
+
+    wrappers = [eval_classify.eval_and_classify, mc33.classify_ext,
+                mc.ntri_of, compact.indices_of,
+                compact.indices_and_ranktable_of,
+                eval_classify.eval_tiles_and_classify_batched,
+                eval_classify.eval_tiles_and_classify]
+
+    # 1. The certificate: 1 rank vs 4, float32, both variants.
+    C = np.arange(-1.2, 1.2, 0.15)
+    none = np.zeros((1, 1, 1), bool)
+    for variant in ("lewiner", "default"):
+        for name, run, tile in (("slabs", parallel.mesh_and_march, 32),
+                                ("tiles", parallel.mesh_sparse_tiles_sharded,
+                                 16)):
+            pts, _ = run(example(sp), C, C, C, none, tile, mesh,
+                         torch.float32, dev, variant=variant)
+            full = parallel.gather_triangles(pts, mesh)
+            if lead:
+                one, _ = run(example(sp), C, C, C, none, tile, None,
+                             torch.float32, dev, variant=variant)
+                out[("cert", name, variant)] = (full, one)
+    say("certificate run")
+
+    # 2-3. The full-width runs: each count set to 0 just before and read
+    # just after, on every rank.
+    for label, (f, kw, want) in sharded_runs(sp, zoo).items():
+        for w in wrappers:
+            w.launches = 0
+        pts = timed(label, lambda: sp.generate(f, verbose=False, mesh=mesh,
+                                               **kw))
+        got = [w.launches for w in wrappers]
+        # B1 reading fields (a gather-bearing expression) has its own entry.
+        got = ([0] + got[1:] + [got[0]] if hybrid.count_gathers(f)
+               else got + [0])
+        every = multihost.all_gather_host(np.asarray(got), group)
+        full = parallel.gather_triangles(pts, mesh)
+        if lead:
+            out[label] = (len(full) // 3, raw_hash(full), soup_hash(full),
+                          len(pts) // 3, every, want)
+            out["launches"][label] = got
+            say("%s: %d triangles (rank 0 holds %d), %.3f s on rank 0, "
+                "launches on rank 0 %s" % (label, len(full) // 3,
+                                           len(pts) // 3,
+                                           out["walls"][label], got))
+        del pts, full
+    for label in ("example 2^22 f32 lewiner", "blobby 2^26 tiles"):
+        f, kw, _ = sharded_runs(sp, zoo)[label]
+        timed(label + " warm", lambda: sp.generate(f, verbose=False,
+                                                   mesh=mesh, **kw))
+
+    # 6. Each kernel launch of rank 0 against its plain version on that
+    # launch's own input: the wrappers stood in for by spies that keep
+    # each call's inputs (rank 0 only; the other ranks run as they are).
+    seen = []
+    spied = [(eval_classify, "eval_and_classify"), (mc33, "classify_ext"),
+             (mc, "ntri_of"), (compact, "indices_of"),
+             (compact, "indices_and_ranktable_of"),
+             (eval_classify, "eval_tiles_and_classify_batched"),
+             (eval_classify, "eval_tiles_and_classify")]
+    real = {name: getattr(mod, name) for mod, name in spied}
+    runs = sharded_runs(sp, zoo)
+    for label in ("example 2^22 f32 lewiner", "blobby 2^26 tiles",
+                  "gather 2^22 tiles"):
+        f, kw, _ = runs[label]
+        if lead:
+            for mod, name in spied:
+                def spy(*a, _name=name, **k):
+                    keep = lambda x: (x.detach().clone()
+                                      if torch.is_tensor(x) else x)
+                    seen.append((label, _name, [keep(x) for x in a],
+                                 {n: keep(x) for n, x in k.items()}))
+                    return real[_name](*a, **k)
+
+                spy.launches = 0
+                setattr(mod, name, spy)
+        try:
+            sp.generate(f, verbose=False, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for mod, name in spied:
+                setattr(mod, name, real[name])
+    if lead:
+        same = lambda a, b: torch.equal(
+            a.view(torch.int32 if a.dtype == torch.float32 else torch.int64)
+            if a.is_floating_point() else a,
+            b.view(torch.int32 if b.dtype == torch.float32 else torch.int64)
+            if b.is_floating_point() else b)
+        held = []
+        for label, name, a, k in seen:
+            if name == "eval_and_classify":
+                sdf, X, Y, Z, dt, device = a[:6]
+                fields = a[6] if len(a) > 6 else k.get("fields")
+                fields = tuple(fields or ())
+                tree = hybrid.to_kernel_tree(sdf) if fields else sdf
+                v, c = real[name](*a, **k)
+                pv, pc = eval_classify._eval_classify_plain(
+                    tree, X, Y, Z, dt, device, fields)
+                ok = same(v, pv) and torch.equal(c, pc)
+                what = "B1 (%d fields) on the slab %s" % (len(fields),
+                                                          tuple(v.shape))
+            elif name == "classify_ext":
+                got = real[name](*a, **k)
+                ok = torch.equal(got, mc33._classify_ext_plain(*a, **k))
+                what = "B2 on %s" % (tuple(a[0].shape),)
+            elif name == "ntri_of":
+                table = mc.get_tables(*a[1:]).on(a[0].device, "ntri")
+                ok = torch.equal(real[name](*a, **k),
+                                 mc._ntri_plain(a[0], table))
+                what = "B3 on %s" % (tuple(a[0].shape),)
+            elif name == "indices_of":
+                ik, tk = real[name](*a, **k)
+                ip, tp = compact._indices_of_plain(*a, **k)
+                ok = torch.equal(ik, ip) and int(tk) == int(tp)
+                what = "B4 on %d slots" % a[0].numel()
+            elif name == "indices_and_ranktable_of":
+                got = real[name](*a, **k)
+                want = compact._ranktable_plain(*a, **k)
+                ok = all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                         for x, y in zip(got, want))
+                what = "B5 on %d slots" % a[0].numel()
+            else:
+                sdf, X, Y, Z, tiles, tile, dt = a[:7]
+                live = k.get("live")
+                vk, ck = real[name](*a, **k)
+                if name == "eval_tiles_and_classify_batched":
+                    pv, pc = eval_classify._plain_tiles(sdf, X, Y, Z, tiles,
+                                                        tile, dt, live)
+                    what = "B6"
+                else:
+                    rows = eval_classify._rows_evaluated(len(tiles), live)
+                    fields = hybrid.record_tiles(
+                        sdf, *eval_classify._axes(X, Y, Z, dt, tiles.device),
+                        tiles[:rows], tile)
+                    pv, pc = eval_classify._plain_tiles(
+                        hybrid.to_kernel_tree(sdf), X, Y, Z, tiles, tile, dt,
+                        live, clamp=False, fields=fields)
+                    what = "B7 (%d fields)" % len(fields)
+                ok = same(vk, pv) and torch.equal(ck, pc)
+                what += " on %d tile rows, live=%s" % (len(tiles), live)
+            held.append((label, what, bool(ok)))
+            torch.cuda.synchronize()
+        out["held"] = held
+        del seen
+    say("kernel launches of rank 0 held against their plain versions")
+
+    # 4. extract_sharded at 162^3, both dtypes, lewiner: a first call (it
+    # uploads the emit's tables), then one whose forward's host reads are
+    # counted with PyTorch's sync check: the warnings raised from the
+    # port's own lines (the waits of gloo's collectives happen on its
+    # worker threads and raise none here).
+    bounds, res = sharded_dm_grid(sp)
+    port = os.sep + "sdf_torch" + os.sep
+    real_extract = diffmesh.extract_sharded
+    for dt in (torch.float32, torch.float64):
+        timed("extract_sharded %s first" % dt, lambda: extract_grads(
+            sp, diffmesh, node_mod, dt, dev, bounds, res, mesh))
+        syncs = []
+
+        def counted(*a, **k):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return real_extract(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs.extend("%s:%d" % (w.filename, w.lineno)
+                                 for w in caught
+                                 if "synchroniz" in str(w.message)
+                                 and port in w.filename)
+
+        diffmesh.extract_sharded = counted
+        try:
+            got = timed("extract_sharded %s" % dt, lambda: extract_grads(
+                sp, diffmesh, node_mod, dt, dev, bounds, res, mesh))
+        finally:
+            diffmesh.extract_sharded = real_extract
+        flat = torch.cat([g.reshape(-1) for g in got[2]]).numpy()
+        every = multihost.all_gather_host(flat, group)
+        if lead:
+            out[("extract", dt)] = got + (syncs, bool(
+                (every == every[0]).all()))
+    say("extract_sharded run")
+
+    # 5. fit(mesh=) on fit_sphere.py's points: the first step, then 300.
+    pts = fit_points()
+    node, loss0 = fit_mod.fit(sp.sphere(0.5), example(sp), pts, steps=1,
+                              lr=0.05, mesh=mesh, device=dev)
+    first = [w.detach().cpu() for w in node_mod.tree_leaves(node)]
+    node, loss = timed("fit 300 steps", lambda: fit_mod.fit(
+        sp.sphere(0.5), example(sp), pts, steps=300, lr=0.05, mesh=mesh,
+        device=dev))
+    leaves = np.concatenate([w.detach().cpu().numpy().reshape(-1)
+                             for w in node_mod.tree_leaves(node)])
+    every = multihost.all_gather_host(leaves, group)
+    node_c, closs = fit_mod.fit_chamfer(
+        sp.sphere(1.0), chamfer_cloud(), CHAMFER_BOUNDS, steps=1, lr=0.05,
+        resolution=20, dtype=torch.float64, mesh=mesh, device=dev)
+    if lead:
+        out["fit"] = (loss0, first, loss, leaves, bool(
+            (every == every[0]).all()))
+        out["chamfer"] = (closs, float(node_mod.tree_leaves(node_c)[-1].detach()))
+    say("fit(mesh=) and fit_chamfer(mesh=) run")
+
+    keys = list(out["walls"])
+    walls = multihost.all_gather_host(
+        np.asarray([out["walls"][k] for k in keys]), group)
+    if lead:
+        out["walls"] = (keys, walls)
+        with open(os.path.join(work, "results.pkl"), "wb") as fp:
+            pickle.dump(out, fp)
+    dist.destroy_process_group()
+
+
+def sharded_dm_grid(sp):
+    """Phase 16's grid: generate()'s 2**22 grid of the example (162^3)."""
+    import torch
+
+    axes = grid_axes(example(sp), DM_SAMPLES, torch.float32)
+    return ((tuple(float(a[0]) for a in axes),
+             tuple(float(a[-1]) for a in axes)), tuple(len(a) for a in axes))
+
+
+def sharded_phase(dev, kernels):
+    """Phase 20: four gloo ranks on the one card.  Adds each kernel's
+    launches on rank 0 in the full-width runs to ``kernels`` as
+    ``sharded_launches``."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import sdf_torch as sp
+    from sdf_torch import _build, parallel
+    from sdf_torch.core import eval_classify, hybrid, mc33
+    from sdf_torch.models import zoo
+
+    print("== phase 20: %d ranks of gloo on the one card (device='cuda'): "
+          "the certificate, z slabs and the tile list at full width, "
+          "extract_sharded, fit(mesh=)" % SHARDED_RANKS, flush=True)
+    print("  NCCL did not run: this machine has one card, and NCCL refuses "
+          "two ranks on one device; the collectives are gloo's")
+    t0 = time.time()
+    libs = _build.build_many(sharded_sources(sp, zoo, _build, eval_classify,
+                                             hybrid, mc33))
+    print("  %d libraries ready in %.1f s" % (len(set(libs)),
+                                             time.time() - t0))
+    t0 = time.time()
+    ref = sharded_reference(dev)
+    print("  single-device references on the card in %.1f s"
+          % (time.time() - t0), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "sharded"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.time()
+    ctx = mp.start_processes(sharded_rank,
+                             args=(SHARDED_RANKS, work, dev.type),
+                             nprocs=SHARDED_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError("phase 20: the ranks did not finish in %d s"
+                               % SHARDED_TIMEOUT_S)
+    print("  ranks done in %.1f s (spawn included)" % (time.time() - t0))
+    with open(os.path.join(work, "results.pkl"), "rb") as fp:
+        got = pickle.load(fp)
+
+    # 1. The certificate.
+    for variant in ("lewiner", "default"):
+        for name in ("slabs", "tiles"):
+            full, one = got[("cert", name, variant)]
+            h = raw_hash(full)
+            check(len(full) == len(one) == 3 * TRIS_CERT
+                  and raw_hash(one) == h,
+                  "certificate %s %s: %d triangles, %d ranks bit-equal to "
+                  "1; sha256 %s (the JAX package's %s…: %s)"
+                  % (name, variant, len(full) // 3, SHARDED_RANKS, h,
+                     CERT_SOUP[:8],
+                     "equal" if h == CERT_SOUP else "differs"))
+            if h != CERT_SOUP:
+                cpu, _ = parallel.mesh_and_march(
+                    example(sp), *(np.arange(-1.2, 1.2, 0.15),) * 3,
+                    np.zeros((1, 1, 1), bool), 32, None, torch.float32,
+                    "cpu", variant=variant)
+                a = full.reshape(-1, 9)
+                b = cpu.reshape(-1, 9)
+                d = np.abs(a[np.lexsort(a.T[::-1])]
+                           - b[np.lexsort(b.T[::-1])]).max()
+                check(d <= 8 * np.finfo(np.float32).eps * np.abs(b).max(),
+                      "largest vertex difference from the device='cpu' run "
+                      "(whose sha256 is the JAX package's on the CPU): %g"
+                      % d)
+
+    # 2-3. The full-width runs against the single-device runs on the card.
+    pins = {"example 2^22 f32 lewiner": TRIS_2P22,
+            "example 2^22 f32 fast": TRIS_2P22,
+            "example 2^24 f64 lewiner": TRIS_2P24,
+            "example 2^24 f64 fast": TRIS_2P24,
+            "blobby 2^26 tiles": TRIS_BLOBBY_2P26}
+    sums = np.zeros(len(SHARDED_KERNELS), np.int64)
+    for label, (n, h, rh, local, every, want) in (
+            (k, got[k]) for k in sharded_runs(sp, zoo)):
+        rn, rraw, rround = ref[label]
+        check(n == rn == pins.get(label, rn) and h == rraw,
+              "%s: %d triangles over %d ranks, canonical soup bit-equal to "
+              "the single-device run on the card (%d)" % (label, n,
+                                                          SHARDED_RANKS, rn))
+        if "2^24" in label:
+            check(rh == SOUP_2P24, "%s: canonical soup sha256 %s… (the pin "
+                  "of tests/test_topology_2p24.py)" % (label, rh[:8]))
+        check(all(list(r) == want for r in every),
+              "%s: every rank launched %s (B1, B2, B3, B4, B5, B6, B7, B1 "
+              "with fields)" % (label, want))
+        sums += np.asarray(got["launches"][label])
+    for k, c in zip(SHARDED_KERNELS, sums):
+        check(c > 0, "%s launched on rank 0 in phase 20's full-width runs "
+              "(%d)" % (k, c))
+        if k in kernels:
+            kernels[k]["sharded_launches"] = int(c)
+    for label, what, ok in got["held"]:
+        check(ok, "%s, rank 0: %s bit-equal to its plain version on the "
+              "same input" % (label, what))
+
+    # 4. extract_sharded.
+    for dt in (torch.float32, torch.float64):
+        h, n, grads, syncs, same = got[("extract", dt)]
+        rh, rn, rgrads = ref[("extract", dt)]
+        check(n == rn == TRIS_2P22 and h == rh and same,
+              "extract_sharded %s at 162^3: %d triangles, valid rows "
+              "bit-equal to extract's as a set, the same gradients on every "
+              "rank" % (dt, n))
+        if dt == torch.float64:
+            ok = all(torch.allclose(a, b, rtol=1e-9, atol=1e-15)
+                     for a, b in zip(grads, rgrads))
+            tol = "rtol 1e-9"
+        else:
+            top = max(float(b.abs().max()) for b in rgrads)
+            ok = all(float((a - b).abs().max()) <= 1e-3 * top
+                     for a, b in zip(grads, rgrads))
+            tol = "1e-3 of the largest (%.4g)" % top
+        err = max(float((a - b).abs().max()) for a, b in zip(grads, rgrads))
+        check(ok, "extract_sharded %s: leaf gradients within %s of "
+              "extract's (max |diff| %.3g)" % (dt, tol, err))
+        check(len(syncs) == 1, "extract_sharded %s: the forward's own code "
+              "reads the host %d time(s) (%s)"
+              % (dt, len(syncs), ", ".join(syncs)))
+
+    # 5. fit(mesh=) and fit_chamfer(mesh=).
+    loss0, first, loss, leaves, same = got["fit"]
+    rloss, rleaves = ref["fit"]
+    check(np.isclose(loss0, rloss, rtol=1e-5) and all(
+        torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+        for a, b in zip(first, rleaves)),
+        "fit(mesh=) first step: loss %.6g and leaves equal fit_step's "
+        "(%.6g) within rtol 1e-5" % (loss0, rloss))
+    check(loss < loss0 and same, "fit(mesh=): the loss falls to %.6g in 300 "
+          "steps; every rank holds the same leaves" % loss)
+    closs, cr = got["chamfer"]
+    rcloss, rcr = ref["chamfer"]
+    check(np.isclose(closs, rcloss, rtol=1e-9) and np.isclose(cr, rcr,
+                                                               rtol=1e-9),
+          "fit_chamfer(mesh=) one step at resolution 20: loss %.6g, radius "
+          "%.6f equal to the single-device step's within rtol 1e-9"
+          % (closs, cr))
+
+    keys, walls = got["walls"]
+    print("  wall seconds per rank (%d ranks time-sharing one H100; not a "
+          "scaling number):" % SHARDED_RANKS)
+    for i, k in enumerate(keys):
+        print("    %-28s %s" % (k, " ".join("%.4f" % w for w in walls[:, i])))
+    print("  card: %s" % card_line())
+
+
 def main():
     import numpy as np
     import torch
@@ -1278,6 +1871,10 @@ def main():
         return slab_sweep(dev)
     if "--tile-sweep" in sys.argv[1:]:
         return tile_sweep(dev)
+    if "--sharded" in sys.argv[1:]:
+        sharded_phase(dev, {})
+        print(card_line())
+        return 0
     if "--diffmesh" in sys.argv[1:]:
         _build.build_many([("ntri", _build.source("ntri.cu")),
                            ("compact", _build.source("compact.cu")),
@@ -2536,13 +3133,14 @@ def main():
             else "no DejaVuSans.ttf in the XDG font directories"))
 
     diffmesh_phases(dev, kernels)
+    sharded_phase(dev, kernels)
 
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
                           "eval_classify_fields"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    more = ["diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
+    more = ["sharded_launches", "diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
             "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
             "kernel_only_ms_all_rows"]
     print(json.dumps({"kernels": [

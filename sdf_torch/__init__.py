@@ -20,10 +20,14 @@ differentiable path: ``core.diffmesh.extract``/``mean_vertex``,
 ``SDF3.gradient``/``normal``, with torch autograd and JAX's gradients;
 and the debug slice, ``sample_slice``/``show_slice``.  Tests run them with
 ``device="cpu"``; ``chip_smoke.py`` phases 16-19 run them on the card.
+Several GPUs (``sdf_torch.parallel``, one process and one device a rank
+on ``torch.distributed``): ``generate(mesh=)`` and ``save(mesh=)`` over z
+slabs or the dealt tile list, ``diffmesh.extract_sharded``,
+``models.fit.make_sharded_fit_step`` and ``mesh=`` on the fitting helpers;
+``parallel.initialize()`` joins a torchrun world (``chip_smoke.py --sharded``
+runs four ranks on one card).
 
-Still to come (ROADMAP.md): multi-GPU ``mesh=`` and the sharded fitting
-forms (A14), which raise ``NotImplementedError``, and the generation of
-the MC33 tables (A17).
+Still to come (ROADMAP.md): the generation of the MC33 tables (A17).
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -58,26 +59,34 @@ def _lib_path(stem, text):
 
 def _start(stem, text):
     """Start one nvcc build unless its library exists; returns
-    ``(path, process or None)``."""
+    ``(path, pending or None)``.
+
+    Several processes (the ranks of a sharded run) may build one library at
+    once: each writes its source and its library to files of its own, named
+    by ``tempfile``, and moves the library into place atomically, so no
+    ``nvcc`` reads a source that another process is rewriting."""
     so = _lib_path(stem, text)
     if so.exists():
         return so, None
+    compiler = nvcc()
     BUILD.mkdir(parents=True, exist_ok=True)
-    cu = so.with_suffix(".cu")
-    cu.write_text(text)
-    tmp = so.with_name(so.name + ".%d.tmp" % os.getpid())
+    fd, cu = tempfile.mkstemp(suffix=".cu", prefix=so.stem + ".", dir=BUILD)
+    with os.fdopen(fd, "w") as fp:
+        fp.write(text)
+    tmp = cu[: -len(".cu")] + ".so.tmp"
     proc = subprocess.Popen(
-        [nvcc(), *FLAGS, "-o", str(tmp), str(cu)],
+        [compiler, *FLAGS, "-o", tmp, cu],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
-    return so, (proc, tmp)
+    return so, (proc, cu, tmp)
 
 
 def _finish(so, pending):
     if pending is None:
         return
-    proc, tmp = pending
+    proc, cu, tmp = pending
     out, _ = proc.communicate()
+    os.remove(cu)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed for %s:\n%s" % (so.name, out))
     os.replace(tmp, so)

@@ -27,10 +27,12 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import mc
 from .engine import resolve_dtype
-from .node import Points, cast, resolve_device, upload
+from .node import Points, cast, resolve_device, tree_map, upload
+from .node import fetch as node_fetch
 
 
 def _resolve(bounds, resolution, capacity, dtype, device):
@@ -104,13 +106,115 @@ def extract(node, bounds, resolution=64, capacity=None, dtype=torch.float32,
     return world, total, valid
 
 
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the incoming gradient over the
+    ranks of ``group``: a leaf used by every rank gets the gradient of the
+    whole computation (JAX's transpose ``psum`` of a replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _all_gather(x, group):
+    """Every rank's ``x`` concatenated along dim 0 in rank order, on
+    ``x``'s device."""
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, x, group=group)
+    return torch.cat(out)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along dim 0 over ``group``, in rank order.  Its backward
+    returns this rank's rows of the incoming gradient, and no sum: every
+    rank computes the same loss from the gathered rows, so a sum would
+    count each rank's share once a rank."""
+
+    @staticmethod
+    def forward(ctx, x, rank, group):
+        ctx.rank, ctx.n = rank, x.shape[0]
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.n: (ctx.rank + 1) * ctx.n], None, None
+
+
 def extract_sharded(node, bounds, resolution=64, capacity=None,
                     dtype=torch.float32, mesh=None, axis_name="grid",
                     variant="lewiner", device=None):
-    """Differentiable extraction sharded over several devices: not ported
-    yet (ROADMAP.md A14)."""
-    raise NotImplementedError(
-        "diffmesh.extract_sharded is not ported yet (ROADMAP A14)")
+    """Differentiable extraction sharded over the ranks of a ``DeviceMesh``
+    (counterpart of sdf_tpu.core.diffmesh.extract_sharded).
+
+    The grid's z cells are cut into one slab a rank, with the recomputed
+    1-sample halo of ``parallel.grid``; each rank meshes its slab into a
+    buffer of the FULL ``capacity`` (slab counts are far from even: an
+    equatorial slab of a sphere holds many times a polar one) and adds the
+    slab offset to the integer z before the interpolation, so its vertices
+    equal ``extract``'s bit for bit.  ``mesh`` None is every rank
+    (``parallel.make_mesh`` on ``device``'s type).
+
+    Returns ``(verts, n, valid)`` on every rank, as ``extract`` does but
+    global: ``verts (ranks * capacity, 3, 3)`` world-space triangles,
+    rank-major, gathered from every rank; ``n`` the true global total (a
+    0-d tensor; overflow shows as a rank's rows all valid and ``n`` above
+    what is kept, with a warning: the forward's one host read).  A loss of
+    the same value on every rank, differentiated with
+    ``torch.autograd.grad`` on each, gives each rank the gradient of the
+    whole surface: the gathered rows send back only this rank's share, and
+    the expression's leaves sum their gradients over the ranks."""
+    from ..parallel.grid import make_mesh
+    from ..parallel.multihost import coords
+
+    variant = mc.get_tables(variant).name
+    dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(device.type, axis_name)
+    rank, ndev, group = coords(mesh, axis_name)
+    (rx, ry, rz), cap_d, origin, step = _resolve(
+        bounds, resolution, capacity, dtype, device)
+    c = -(-(rz - 1) // ndev)  # z cells a rank
+    zidx = np.minimum(rank * c + np.arange(c + 1), rz - 1)
+    X, Y = (origin[a] + step[a] * torch.arange(r, dtype=dtype, device=device)
+            for a, r in enumerate((rx, ry)))
+    (zi,) = upload([zidx], dtype, device)
+    Z = origin[2] + step[2] * zi
+    node = tree_map(
+        lambda w: (_SumGrad.apply(w, group)
+                   if isinstance(w, torch.Tensor) and w.requires_grad else w),
+        cast(node, dtype, device))
+    p = Points(X[:, None, None], Y[None, :, None], Z[None, None, :])
+    vol = torch.as_tensor(node(p)).broadcast_to((rx, ry, c + 1)).contiguous()
+    (zok,) = upload([rank * c + np.arange(c) < rz - 1], torch.bool, device)
+    keep = zok.expand(rx - 1, ry - 1, c)  # padded cells past the grid off
+    case = mc._classify(vol, variant)
+    total = (mc.ntri_of(case, variant) * keep.to(torch.int32)).sum()
+    verts9, nn = mc.emit(vol, keep, cap_d, case=case, variant=variant,
+                         z_offset=rank * c)
+    kept = torch.clamp(torch.minimum(nn, total), max=cap_d)
+    world9 = verts9 * step.repeat(3)[:, None] + origin.repeat(3)[:, None]
+    world = _Gather.apply(world9.T.reshape(cap_d, 3, 3), rank, group)
+    counts = _all_gather(torch.stack([kept, total]).to(torch.int64)[None],
+                         group)  # (ranks, 2): kept, true total
+    gtotal = counts[:, 1].sum()
+    per_rank = node_fetch([counts])[0]  # the call's one host read
+    if (per_rank[:, 1] > cap_d).any():
+        warnings.warn(
+            "diffmesh.extract_sharded: a slab has %d triangles but "
+            "capacity=%d a rank; extra triangles were dropped -- raise "
+            "capacity=" % (per_rank[:, 1].max(), cap_d))
+    valid = (torch.arange(cap_d, device=device)[None, :]
+             < counts[:, :1]).reshape(-1)
+    return world, gtotal, valid
 
 
 def mean_vertex(node, bounds, resolution=64, capacity=None,

@@ -1,5 +1,6 @@
 """Grid sampling + meshing engine (counterpart of ``sdf_tpu.core.engine``):
-the single-device ``generate()``, dense and tiled.
+``generate()``, dense and tiled, on one device or sharded over the ranks of
+a mesh (``parallel``).
 
   * bounds: the reference's 16^3 probe-grid refinement, evaluated on the
     CPU in the compute dtype with float64 loop state (machine-independent
@@ -470,7 +471,17 @@ def generate(
     and kernel B7 on the tiles read the subtrees' fields, recorded ahead
     with torch ops.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh=``.
+    ``mesh=`` (a 1-D ``DeviceMesh`` of ``torch.distributed``, see
+    ``parallel.make_mesh``) shards the run over its ranks, one process and
+    one device a rank: ``sparse="tiles"`` (or ``sparse=True`` once the host
+    cull removes ``AUTO_TILES_THRESHOLD`` of the batches) deals the tile
+    list over them (``parallel.sparse``), every other setting cuts the grid
+    into z slabs (``parallel.grid``).  Each rank returns its own share of
+    the mesh and the global statistics; ``parallel.gather_triangles``
+    assembles the shares.  With ``torch.distributed`` running more than one
+    rank, ``mesh=None`` shards over all of them; a mesh of one rank is the
+    single-device run.  No speculative cull under a mesh, and
+    ``mc33_conflicted_cells`` is absent from ``LAST_STATS`` there.
     """
     start = time.time()
     dtype = resolve_dtype(dtype)
@@ -486,8 +497,11 @@ def generate(
         sparse = bool(sparse)
     elif sparse != "tiles":
         raise ValueError("sparse must be True, False or 'tiles'")
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP A14)")
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None and checkpoint is not None:
+        raise ValueError("checkpoint= is not supported with a mesh: each "
+                         "rank holds only its share of the mesh")
+    ndev = 1 if mesh is None else mesh.size()
     want_indexed = output == "mesh" and not debug
 
     if workers is not None:
@@ -531,7 +545,7 @@ def generate(
     if verbose:
         print(
             "%d samples in %d batches with %d devices"
-            % (num_samples, num_batches, 1)
+            % (num_samples, num_batches, ndev)
         )
 
     bar = progress.Bar(num_batches, enabled=verbose)
@@ -575,12 +589,10 @@ def generate(
                 variant=mc_variant, stats=stats,
             )
 
-    # mc33_conflicted_cells is counted by the dense pipeline only: a run
-    # that goes to the tiles at once leaves the key out of LAST_STATS.
-    confl = None
-    if sparse == "tiles":
-        # Not speculative: the tile list is made on the host, so the cull
-        # mask is a host evaluation (memoized per expression and grid).
+    def host_skip():
+        # The cull mask evaluated on the host (memoized per expression and
+        # grid): the tile list is made from it, and every rank of a mesh
+        # computes the same one.
         with _phase("skip_mask", stats):
             skey = _fingerprint_or_none(sdf, X, Y, Z, ("skip", str(dtype), s))
             skip = _SKIP_MEMO.get(skey) if skey is not None else None
@@ -588,6 +600,37 @@ def generate(
                 skip = _skip_mask(sdf, X, Y, Z, s, dtype)
                 ckpt.memo_put(_SKIP_MEMO, skey, skip)
         bar.update(num_batches * 0.1)
+        return skip
+
+    # mc33_conflicted_cells is counted by the dense pipeline only: a run
+    # that goes to the tiles at once, or runs on a mesh, leaves the key out
+    # of LAST_STATS.
+    confl = None
+    if mesh is not None:
+        from ..parallel import grid as pgrid, sparse as psparse
+
+        if sparse:
+            skip = host_skip()
+        else:
+            skip = np.zeros((-(-len(X) // s), -(-len(Y) // s),
+                             -(-len(Z) // s)), dtype=bool)
+        if sparse is True and skip.mean() >= AUTO_TILES_THRESHOLD:
+            sparse = "tiles"
+            stats["auto_tiles"] = round(float(skip.mean()), 4)
+        if sparse == "tiles":
+            # The active-tile list dealt over the ranks.
+            with _phase("sparse_tiles_sharded", stats):
+                indexed, per_tile = psparse.mesh_sparse_tiles_sharded(
+                    sdf, X, Y, Z, skip, s, mesh, dtype, device,
+                    return_indexed=True, variant=mc_variant)
+        else:
+            with _phase("mesh_and_march", stats):
+                indexed, per_tile = pgrid.mesh_and_march(
+                    sdf, X, Y, Z, skip, s, mesh, dtype, device,
+                    return_indexed=True, variant=mc_variant)
+        bar.update(num_batches * 0.8)
+    elif sparse == "tiles":
+        skip = host_skip()
         indexed, per_tile = tiles_path(skip)
         bar.update(num_batches * 0.8)
     else:
@@ -618,7 +661,8 @@ def generate(
     nonempty = int(((pt > 0) & ~skip).sum())
     empty = num_batches - skipped - nonempty
 
-    if debug:
+    if debug and (mesh is None or mesh.get_local_rank() == 0):
+        # Under a mesh the statistics are global: one rank adds the boxes.
         flagged = np.argwhere(skip | (pt == 0))
         points = np.concatenate(
             [points, _debug_triangles(X, Y, Z, flagged, s)], axis=0
@@ -660,10 +704,33 @@ def generate_mesh(sdf, *args, **kwargs):
     return generate(sdf, *args, output="mesh", **kwargs)
 
 
-def save(path, sdf, *args, **kwargs):
+def _resolve_mesh(mesh, device):
+    """The mesh a run shards over: ``mesh``, or every rank of a
+    ``torch.distributed`` world of more than one when None; None (one
+    device) for no mesh or a mesh of one rank."""
+    if mesh is None:
+        from ..parallel import grid as pgrid
+
+        mesh = pgrid.world_mesh(device)
+    if mesh is not None and mesh.size() == 1:
+        return None
+    return mesh
+
+
+def save(path, sdf, *args, mesh=None, **kwargs):
     """Generate and write the mesh: a binary STL, or by extension the
-    indexed formats of ``io.meshfmt`` (OBJ, PLY)."""
-    points = generate(sdf, *args, **kwargs)
+    indexed formats of ``io.meshfmt`` (OBJ, PLY).  Under a mesh (``mesh=``,
+    or every rank of a ``torch.distributed`` world of more than one), the
+    ranks' shares are gathered, rank 0 writes the whole mesh and every
+    rank returns it."""
+    mesh = _resolve_mesh(mesh, kwargs.get("device"))
+    points = generate(sdf, *args, mesh=mesh, **kwargs)
+    if mesh is not None:
+        from .. import parallel
+
+        points = parallel.gather_triangles(points, mesh)
+        parallel.write_on_process0(path, points, mesh)
+        return points
     if path.lower().endswith(".stl"):
         stl.write_binary_stl(path, points)
     else:

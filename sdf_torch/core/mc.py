@@ -282,14 +282,16 @@ def count(volume, cell_mask, tile, case=None, variant="default"):
 
 
 def emit(volume, cell_mask, capacity, cell_capacity=None, case=None,
-         variant="default"):
+         variant="default", z_offset=0):
     """Phase 2 of the soup emit: ``(verts (9, capacity), n_tris)`` in
     fractional index coordinates, row ``v * 3 + c`` holding component c of
     vertex v, triangles in ascending (cell, slot) order; columns
     ``[0:n_tris]`` are valid (see sdf_tpu.core.mc.emit).  Two-level
     compaction: the active cells first (kernel B4), then their slots
     (``compact.ragged_expand``).  Gradients reach ``volume`` through the
-    corner gather and the lerp."""
+    corner gather and the lerp.  ``z_offset`` shifts the integer z of every
+    cell before the float interpolation (a z slab's vertices in the global
+    grid, bit-equal to a run over the whole grid)."""
     if cell_capacity is None:
         # n_active_cells <= n_triangles: the triangle capacity bounds it.
         cell_capacity = capacity
@@ -307,7 +309,8 @@ def emit(volume, cell_mask, capacity, cell_capacity=None, case=None,
     cell_case = case.reshape(-1)[cell_idx]
     cell_ntri = torch.where(cell_live, ntri.reshape(-1)[cell_idx], 0)
     corner = _gather_corners(volume, ci, cj, ck)
-    base = (ci.to(volume.dtype), cj.to(volume.dtype), ck.to(volume.dtype))
+    base = (ci.to(volume.dtype), cj.to(volume.dtype),
+            (ck + z_offset).to(volume.dtype))
     return interpolate_slots(corner, base, cell_case, cell_ntri, capacity,
                              cell_capacity, variant)
 
@@ -511,9 +514,14 @@ def gather_emit_indexed(volume, case, active, emask, edge_capacity, capacity,
 
 
 def _emit_indexed_core(volume, emask, cell_state, edge_capacity, capacity,
-                       cell_capacity, variant="default"):
+                       cell_capacity, z_offset=0, variant="default"):
     """Per-edge ``(eidx, ax, exyz, t)`` plus resolved ``faces (3,
-    capacity)`` and ``n_tris`` (see sdf_tpu.core.mc._emit_indexed_core)."""
+    capacity)`` and ``n_tris`` (see sdf_tpu.core.mc._emit_indexed_core).
+
+    ``z_offset`` is added to the integer z of every edge, before the float
+    interpolation add: a sharded slab's vertices are then bit-identical to
+    a run over the global grid (adding it to ``z + t`` afterwards rounds
+    differently).  The volume gather uses the slab-local z."""
     nx, ny, nz = volume.shape
     Sx = (nx - 1) * ny * nz
     Sy = nx * (ny - 1) * nz
@@ -550,18 +558,18 @@ def _emit_indexed_core(volume, emask, cell_state, edge_capacity, capacity,
     faces, n_tris = _resolve_faces(
         ranktab, cell_state, capacity, cell_capacity, ny, nz, Sx, Sy, variant
     )
-    return eidx, ax, (ex, ey, ez), t, faces, n_tris
+    return eidx, ax, (ex, ey, ez + z_offset), t, faces, n_tris
 
 
 def emit_indexed(volume, emask, cell_state, edge_capacity, capacity,
-                 cell_capacity, variant="default"):
+                 cell_capacity, z_offset=0, variant="default"):
     """Unique vertices + int32 faces: ``(everts (3, edge_capacity),
     faces (3, capacity), n_tris)``; ``everts.T[faces.T.reshape(-1)]`` is the
-    triangle soup."""
+    triangle soup.  ``z_offset``: see ``_emit_indexed_core``."""
     dtype = volume.dtype
     _, ax, (ex, ey, ez), t, faces, n_tris = _emit_indexed_core(
         volume, emask, cell_state, edge_capacity, capacity, cell_capacity,
-        variant,
+        z_offset, variant,
     )
     everts = torch.stack(
         [

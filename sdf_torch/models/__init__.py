@@ -1,6 +1,7 @@
 """Model zoo: the example workloads as importable functions, and the
-fitting step (counterpart of ``sdf_tpu.models``; ``models.fit`` holds
-``fit``, ``fit_chamfer`` and ``make_chamfer_loss`` too)."""
+fitting steps, on one device and sharded over a mesh's ranks (counterpart
+of ``sdf_tpu.models``; ``models.fit`` holds ``fit``, ``fit_chamfer`` and
+``make_chamfer_loss`` too, each with ``mesh=``)."""
 
 from .zoo import (
     MODELS,

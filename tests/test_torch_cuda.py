@@ -911,3 +911,19 @@ def test_fit_step_and_slice_match_cpu(cuda):
                             device="cpu")
         np.testing.assert_array_equal(a[0], b[0])
         assert a[1:] == b[1:]
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """generate(mesh=) on two gloo ranks of card 0, z slabs and the tile
+    list: each rank launches its own kernels (B1, B2, B3, B4, B5 on a
+    slab; B6, B2, B3, B4, B5 on its tiles), and the gathered soup equals
+    the single-device run on the card as a set of triangles."""
+    got = th.spawn_ranks(th.cuda_rank, 2, tmp_path)
+    for sparse, launches in ((False, [1, 1, 2, 1, 1, 0]),
+                             ("tiles", [0, 1, 2, 1, 1, 1])):
+        full, launched, device = got[sparse]
+        want = sp.generate(th.example(sp), samples=2**18, verbose=False,
+                           sparse=sparse, device=cuda)
+        assert device == 0 and len(want) > 0
+        assert np.array_equal(th.canon(full), th.canon(want)), sparse
+        assert launched == launches, (sparse, launched)

@@ -302,8 +302,9 @@ def test_extract_and_mean_vertex_match_jax(name, variant):
 
 def test_extract_variants_and_errors(monkeypatch):
     """"fast" and the legacy "default" name give the same mesh; an unknown
-    variant raises; extract_sharded names the roadmap item; device=None
-    means the card and raises without one."""
+    variant raises; extract_sharded without a mesh needs torch.distributed
+    (its runs on ranks: tests/test_torch_parallel.py); device=None means
+    the card and raises without one."""
     a = tdm.extract(sp.sphere(1.0), BOUNDS, 20, device="cpu", variant="fast")
     b = tdm.extract(sp.sphere(1.0), BOUNDS, 20, device="cpu",
                     variant="default")
@@ -311,8 +312,8 @@ def test_extract_variants_and_errors(monkeypatch):
     assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
     with pytest.raises(ValueError, match="mc_variant"):
         tdm.extract(sp.sphere(1.0), BOUNDS, 20, device="cpu", variant="mc33")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tdm.extract_sharded(sp.sphere(1.0), BOUNDS, 20)
+    with pytest.raises(RuntimeError, match="initialize"):
+        tdm.extract_sharded(sp.sphere(1.0), BOUNDS, 20, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tdm.extract(sp.sphere(1.0), BOUNDS, 20)

@@ -185,18 +185,40 @@ def test_verbose_format_and_stats():
         assert key in tengine.LAST_STATS
 
 
+class _Ranks:
+    """A stand-in for a 1-D DeviceMesh of ``n`` ranks, seen from rank 0."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+    def get_local_rank(self, axis=None):
+        return 0
+
+
 @pytest.mark.parametrize("variant", ["lewiner", "fast"])
 @pytest.mark.parametrize(
     "kw,item",
-    [({"sparse": "tiles", "mesh": object()}, "A14"), ({"mesh": object()}, "A14")],
+    [({"sparse": "tiles", "mesh": _Ranks(2)}, "checkpoint"),
+     ({"mesh": _Ranks(2)}, "checkpoint")],
     ids=["tiles", "mesh"],
 )
-def test_unported_branches_raise(kw, item, variant):
-    """``mesh=`` is the one branch that still raises, with the tiles too
-    (the sharded tile list)."""
-    with pytest.raises(NotImplementedError, match=item):
-        th.example(sp).generate(samples=2**12, verbose=False, device="cpu",
-                                mc_variant=variant, **kw)
+def test_unported_branches_raise(kw, item, variant, tmp_path):
+    """Every ``mesh=`` branch is ported (the test keeps the name it had
+    while they raised; tests/test_torch_parallel.py runs them on ranks):
+    what raises under a mesh of more than one rank is ``checkpoint=``,
+    since each rank holds only its share.  A mesh of one rank is the
+    single-device run, bit for bit."""
+    call = dict(samples=2**12, verbose=False, device="cpu", mc_variant=variant)
+    with pytest.raises(ValueError, match=item):
+        th.example(sp).generate(checkpoint=str(tmp_path / "c.npz"), **kw,
+                                **call)
+    one = dict(kw, mesh=_Ranks(1))
+    assert np.array_equal(th.example(sp).generate(**one, **call),
+                          th.example(sp).generate(sparse=kw.get("sparse", True),
+                                                  **call))
 
 
 def test_cull_routing_to_tiles_raises():

@@ -111,21 +111,31 @@ def test_fit_chamfer_recovers_radius():
     assert loss < 0.25
 
 
+class _Ranks:
+    """A stand-in for a 1-D DeviceMesh of 3 ranks, seen from rank 0."""
+
+    def size(self):
+        return 3
+
+    def get_local_rank(self, axis=None):
+        return 0
+
+    def get_group(self, axis=None):
+        return None
+
+
 def test_sharded_and_mesh_forms_raise(monkeypatch):
-    """The multi-device forms wait for ROADMAP A14; device=None means the
-    card."""
+    """The multi-device forms run (tests/test_torch_parallel.py holds them
+    against JAX on ranks); what raises: a batch that does not divide over
+    the mesh's ranks.  device=None means the card."""
     pts = np.zeros((8, 3))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfit.make_sharded_fit_step(object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfit.fit(sp.sphere(1.0), sp.sphere(1.0), pts, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfit.fit_chamfer(sp.sphere(1.0), pts, BOUNDS, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfit.make_chamfer_loss(BOUNDS, mesh=object())
+    step = tfit.make_sharded_fit_step(_Ranks())
+    with pytest.raises(ValueError, match="divide"):
+        step(sp.sphere(1.0), torch.zeros((8, 3)), torch.zeros(8), 0.1)
     from sdf_torch import models
 
     assert models.fit_step is tfit.fit_step
+    assert models.make_sharded_fit_step is tfit.make_sharded_fit_step
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tfit.fit(sp.sphere(1.0), sp.sphere(1.0), pts, steps=1)

@@ -29,6 +29,11 @@ KERNEL_MODULES = [
     "sdf_torch.ops.meshsdf",
     "sdf_torch.core.diffmesh",
     "sdf_torch.models.fit",
+    "sdf_torch.parallel",
+    "sdf_torch.parallel.grid",
+    "sdf_torch.parallel.sparse",
+    "sdf_torch.parallel.shards",
+    "sdf_torch.parallel.multihost",
 ]
 
 
@@ -44,6 +49,8 @@ def test_import_leaves_jax_out():
         "import sdf_torch.ops.shapes2, sdf_torch.ops.textures\n"
         "import sdf_torch.ops.meshsdf\n"
         "import sdf_torch.core.diffmesh, sdf_torch.models.fit\n"
+        "import sdf_torch.parallel.grid, sdf_torch.parallel.sparse\n"
+        "import sdf_torch.parallel.shards, sdf_torch.parallel.multihost\n"
         "sdf_torch.core.mc.get_tables('lewiner')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'sdf_tpu'))]\n"
@@ -73,7 +80,9 @@ def test_sources_name_no_jax():
             "sdf_torch/core/sparse.py", "sdf_torch/core/hybrid.py",
             "sdf_torch/ops/shapes2.py", "sdf_torch/ops/textures.py",
             "sdf_torch/ops/meshsdf.py", "sdf_torch/core/diffmesh.py",
-            "sdf_torch/models/fit.py"} <= names
+            "sdf_torch/models/fit.py", "sdf_torch/parallel/grid.py",
+            "sdf_torch/parallel/sparse.py", "sdf_torch/parallel/shards.py",
+            "sdf_torch/parallel/multihost.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:
@@ -332,3 +341,12 @@ def test_one_pass_ranktable_and_no_try_around_a_launch():
     from sdf_torch import _build
 
     assert "count_kernel" not in _build.source("compact.cu")
+
+
+def test_no_branch_waits_for_the_multi_gpu_port():
+    """Every entry point of the multi-GPU port runs: no module of the port
+    raises NotImplementedError naming ROADMAP A14 any more."""
+    for path in _port_sources():
+        with open(path) as fp:
+            text = fp.read()
+        assert "A14" not in text, path

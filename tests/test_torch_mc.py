@@ -131,3 +131,42 @@ def test_unpack_faces_bit_equal():
     np.testing.assert_array_equal(tmc.unpack_faces(packed), jmc.unpack_faces(packed))
     np.testing.assert_array_equal(tmc.unpack_faces(packed), f.T.astype(np.int32))
     np.testing.assert_array_equal(tmc.unpack_faces(f), jmc.unpack_faces(f))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_emit_indexed_z_offset_matches(dtype):
+    """emit_indexed(z_offset=): the JAX package's vertices and faces, bit
+    for bit; the offset goes into the integer z before the float add, so a
+    slab of a grid emits the vertices of the whole grid's run."""
+    vol, keep, tshape = _volume(dtype)
+    (jv, jcase, want), (tv, tcase, got) = _both_counts(vol, keep, tshape)
+    n_cells, n, ne = (int(x) for x in want[:3])
+    caps = (jmc.round_capacity(ne), jmc.round_capacity(n),
+            jmc.round_capacity(n_cells))
+    jstate = jmc.compact_cells(jcase, want[4], caps[2])
+    tstate = tmc.compact_cells(tcase, got[4], caps[2])
+    for off in (0, 7):
+        we, wf, wn = jmc.emit_indexed(jv, want[5], jstate, *caps, z_offset=off)
+        ge, gf, gn = tmc.emit_indexed(tv, got[5], tstate, *caps, z_offset=off)
+        np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
+        np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
+        assert int(gn) == int(wn) == n
+    # The cells of z slab [3, 10] of the grid, offset by 3: the whole
+    # grid's vertices of those cells, bit for bit.
+    slab = tv[:, :, 3:11].contiguous()
+    scase = tcase[:, :, 3:10].contiguous()
+    active = got[4][:, :, 3:10].contiguous()
+    emask = tmc._edge_mask(slab, active)
+    sn = int((tmc.ntri_of(scase) * active).sum())
+    sne = int(emask.sum())
+    state = tmc.compact_cells(scase, active, caps[2])
+    se, sf, _ = tmc.emit_indexed(slab, emask, state, caps[0], caps[1],
+                                 caps[2], z_offset=3)
+    soup = se.numpy()[:, :sne].T[sf.numpy()[:, :sn].T.reshape(-1)]
+    ge, gf, _ = tmc.emit_indexed(tv, got[5], tstate, *caps)
+    whole = ge.numpy()[:, :ne].T[gf.numpy()[:, :n].T.reshape(-1)].reshape(
+        -1, 3, 3)
+    z = whole[:, :, 2].min(axis=1)
+    inside = whole[(z >= 3) & (z < 10)]
+    assert len(soup) > 0
+    assert np.array_equal(th.canon(soup), th.canon(inside))
