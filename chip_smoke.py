@@ -93,7 +93,20 @@ Phases, each printing its own lines:
      points (the first step equal to the single-device step's, the loss
      falling over 300 steps, the same leaves on every rank) and one
      fit_chamfer(mesh=) step; wall times per rank, which time-share the
-     card and are no scaling number.  NCCL does not run: one card.
+     card and are no scaling number.  NCCL does not run: one card;
+ 21. the lewiner table builder: kernel L1 (csrc/label3d.cu, batched 3D
+     connected-component labelling of a sampled trilinear's two sign
+     classes) bit-equal to its plain version and, at the corners, to
+     scipy.ndimage.label on the host, at n=64 with B=9 (a bucket), n=128
+     with B=9 and n=512 with B=1, with the kernel's, the plain version's
+     and scipy's times; the bucket keys of five cases on the card equal to
+     the CPU's; then build_tables() at the tool's settings (120,000
+     realizations a case, 9 picks a bucket, n=64, seed 7) on the card,
+     its seven arrays equal to sdf_torch/core/mc33_tables.npz, with its
+     wall, L1's launches and the realizations labelled per n; whether the
+     written npz is byte-equal to the shipped file is printed, not
+     required; and the build once more under torch.profiler: the card's
+     busy time and idle share, L1's share of it.
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -117,8 +130,10 @@ its look-back scratch takes.
 Then one JSON line with every kernel (B2's, B3's and B4's entries also
 carry ``diffmesh_launches``, their launches in phase 16's float32 lewiner
 extract; every entry carries ``sharded_launches``, its launches on rank 0
-in phase 20's full-width runs), the card line again, and last the result
-line.  Any failed check raises, and the script exits non-zero
+in phase 20's full-width runs; L1's entry, at n=64 and B=9, carries its
+other shapes, scipy's host ms in place of a library call, the build's
+wall and the realizations labelled per n), the card line again, and last
+the result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --ptxas`` instead compiles kernels B1 and B6/B7
@@ -146,6 +161,9 @@ phases 16 to 19 alone (a few minutes shorter than the whole script).
 
 ``python3 chip_smoke.py --sharded`` builds the libraries phase 20 needs and
 runs phase 20 alone.
+
+``python3 chip_smoke.py --tables`` builds kernel L1 and runs phase 21
+alone.
 
 ``python3 chip_smoke.py --slab-sweep`` times kernel B1 with its slab
 length forced to each of a range of values, on the example's 2**22 grid
@@ -1846,6 +1864,178 @@ def sharded_phase(dev, kernels):
     print("  card: %s" % card_line())
 
 
+# -- phase 21: the lewiner table builder ---------------------------------------
+
+# The table builder's settings in tools/build_mc33_tables_torch.py.
+TABLE_SETTINGS = dict(samples_per_case=120_000, reps_per_bucket=9,
+                      oracle_n=64, seed=7)
+# Kernel L1's resolutions: the builder's n and each escalation up to the
+# ceiling; label_shapes() gives each the batch the build launches there.
+LABEL_NS = (64, 128, 256, 512)
+# float64 operations a voxel of trilinear_eval's sum that depend on all
+# three indices (five sums and the last product; the terms of one axis or
+# one plane hoisted out): L1's least arithmetic.
+LABEL_OPS_PER_VOXEL = 6
+# L1's four kernels (csrc/label3d.cu), as the profiler names them.
+LABEL_KERNELS = ("eval_kernel", "init_kernel", "merge_kernel",
+                 "compress_kernel")
+
+
+def label_shapes(mb):
+    """(n, B) for each of LABEL_NS: a bucket's picks, cut as
+    _corner_labels cuts them into launches of at most LAUNCH_VOXELS."""
+    reps = TABLE_SETTINGS["reps_per_bucket"]
+    return [(n, min(reps, max(1, mb.LAUNCH_VOXELS // n ** 3)))
+            for n in LABEL_NS]
+
+
+def scipy_corner_labels(mb, v, n):
+    """The JAX package's host oracle on realization ``v`` at n (numpy's
+    meshgrid and trilinear_eval, scipy.ndimage.label on f < 0 and on
+    f >= 0), read at the 8 corners: (class bits, labels of the corner's
+    own class, negated for f >= 0).  Returns them and the host ms."""
+    import numpy as np
+    from scipy import ndimage
+
+    t0 = time.perf_counter()
+    k = mb.trilinear_coeffs(v)
+    t = np.linspace(0.0, 1.0, n)
+    x, y, z = np.meshgrid(t, t, t, indexing="ij")
+    f = mb.trilinear_eval(k, x, y, z)
+    del x, y, z
+    lab_in, _ = ndimage.label(f < 0)
+    lab_out, _ = ndimage.label(f >= 0)
+    ms = (time.perf_counter() - t0) * 1e3
+    at = mb._corner_index(n)
+    cls = (f.reshape(-1)[at] < 0).astype(np.uint8)
+    lab = np.where(cls == 1, lab_in.reshape(-1)[at],
+                   -lab_out.reshape(-1)[at])  # the two numberings apart
+    return cls, lab, ms
+
+
+def same_partition(a, b):
+    """True iff labels ``a`` and ``b`` (8 corners) group them alike."""
+    return all((a[i] == a[j]) == (b[i] == b[j])
+               for i in range(8) for j in range(8))
+
+
+def table_builder_phase(dev, kernels):
+    """Phase 21: kernel L1 against its plain version and scipy, then
+    build_tables() at the tool's settings on the card against the shipped
+    mc33_tables.npz.  Adds L1's entry to ``kernels``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdf_torch.core import mc33, mc33_build as mb
+
+    print("== phase 21: the lewiner table builder: kernel L1, then "
+          "build_tables%s on the card" % (tuple(TABLE_SETTINGS.values()),),
+          flush=True)
+    rng = np.random.default_rng(21)
+    rows, err = [], 0.0
+    for n, nb in label_shapes(mb):
+        # realizations of cases with ambiguous faces and tunnels
+        v = np.concatenate([mb.sample_realizations(c, nb, rng)
+                            for c in (105, 90, 165)])[:nb]
+        k = torch.from_numpy(mb.trilinear_coeffs(v)).to(dev)
+        t = torch.from_numpy(np.linspace(0.0, 1.0, n)).to(dev)
+        got = mb.label_corners(k, t)
+        want = mb._label_corners_plain(k, t)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "L1 at n=%d, B=%d: corner classes and labels bit-equal to "
+              "the plain version" % (n, nb))
+        err = max(err, max_abs_diff([(got[1], want[1])]))
+        host = [scipy_corner_labels(mb, vi, n) for vi in v]
+        gc, gl = got[0].cpu().numpy(), got[1].cpu().numpy()
+        check(all(np.array_equal(gc[b], host[b][0])
+                  and same_partition(gl[b], host[b][1])
+                  for b in range(nb)),
+              "L1 at n=%d, B=%d: the corners' classes and components those "
+              "of scipy.ndimage.label on the host" % (n, nb))
+        ms = device_ms(lambda: mb.label_corners(k, t))
+        pms = device_ms(lambda: mb._label_corners_plain(k, t), reps=3,
+                        warm=1)
+        # in: k (B, 8) and t (n,) float64; out: 8 class bytes and 8 int32
+        # labels a realization.  The label volume is this design's
+        # workspace, not the function's: its traffic is printed apart.
+        b, by = bound_ms(64 * nb + 8 * n + 40 * nb,
+                         LABEL_OPS_PER_VOXEL * nb * n ** 3, "float64")
+        wb = 4 * nb * n ** 3 / HBM_BYTES_PER_S * 1e3
+        sms = sum(h[2] for h in host)
+        print("  L1 n=%d B=%d: kernel_ms %.4f plain_ms %.4f bound_ms %.6f "
+              "(%s) workspace_bound_ms %.4f scipy_host_ms %.1f"
+              % (n, nb, ms, pms, b, by, wb, sms), flush=True)
+        rows.append(dict(n=n, B=nb, ms=ms, plain_ms=pms, bound_ms=b,
+                         bound_by=by, workspace_bound_ms=wb,
+                         scipy_host_ms=sms))
+        del got, want, k, t
+    torch.cuda.empty_cache()
+
+    # Bucket keys of five cases on the card against the CPU path.
+    for case in (5, 23, 90, 105, 165):
+        v = mb.sample_realizations(case, TABLE_SETTINGS["samples_per_case"],
+                                   np.random.default_rng(case))
+        keys = [(mb._facebits_of(v, case, device=d) * 9
+                 + mb.interior_bits(v, device=d)).cpu().numpy()
+                for d in (dev, "cpu")]
+        check(np.array_equal(*keys), "case %d: %d bucket keys on the card "
+              "equal to the CPU's (%d buckets)"
+              % (case, len(v), len(np.unique(keys[0]))))
+
+    # The main path: the whole build, L1's count set to 0 just before.
+    mb.label_corners.launches = 0
+    mb.label_corners.labelled = {}
+    t0 = time.perf_counter()
+    tabs = mb.build_tables(device=dev, **TABLE_SETTINGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mb.label_corners.launches
+    calls = dict(mb.label_corners.labelled)
+    print("  build_tables wall %.3f s, L1 launches %d, realizations "
+          "labelled per n %s, conflicted buckets %d"
+          % (wall, launches, sorted(calls.items()),
+             int((tabs["conflict_rate"] > 0).sum())))
+    check(launches > 0, "L1 launched in the build (%d launches)" % launches)
+    with np.load(mc33._NPZ) as z:
+        shipped = dict(z)
+    check(sorted(tabs) == sorted(shipped), "the build's seven arrays")
+    for key in sorted(shipped):
+        a, w = tabs[key], shipped[key]
+        check(a.dtype == w.dtype and a.shape == w.shape
+              and np.array_equal(a, w),
+              "%s %s %s equal to sdf_torch/core/mc33_tables.npz"
+              % (key, a.dtype, a.shape))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mc33_tables.npz")
+        np.savez_compressed(out, **tabs)
+        with open(out, "rb") as fp, open(mc33._NPZ, "rb") as ship:
+            same = fp.read() == ship.read()
+    print("  the written npz is %sbyte-equal to the shipped file (zlib may "
+          "differ between machines; not required)" % ("" if same else "NOT "))
+    # Where the build's time goes: the same build again under the profiler.
+    pwall, busy, per = timeline(
+        lambda: mb.build_tables(device=dev, **TABLE_SETTINGS))
+    l1 = sum(ms for name, ms in per.items()
+             if any(k in name for k in LABEL_KERNELS))
+    print("  profiled build: wall %.3f s, card busy %.1f ms (idle %.2f%%), "
+          "L1's four kernels %.1f ms, the rest (keys, copies) %.1f ms"
+          % (pwall / 1e3, busy, 100 * (1 - busy / pwall), l1, sum(
+              per.values()) - l1))
+    first = rows[0]
+    kernels["label3d"] = dict(
+        name="label3d", route="cuda", source="sdf_torch/csrc/label3d.cu",
+        replaces="scipy.ndimage.label (host)", launches=launches,
+        max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=None, workspace_bound_ms=first["workspace_bound_ms"],
+        scipy_host_ms=first["scipy_host_ms"], shapes=rows, build_wall_s=wall, build_busy_ms=busy,
+        oracle_calls={str(n): c for n, c in sorted(calls.items())},
+    )
+
+
 def main():
     import numpy as np
     import torch
@@ -1873,6 +2063,11 @@ def main():
         return tile_sweep(dev)
     if "--sharded" in sys.argv[1:]:
         sharded_phase(dev, {})
+        print(card_line())
+        return 0
+    if "--tables" in sys.argv[1:]:
+        _build.build_many([("label3d", _build.source("label3d.cu"))])
+        table_builder_phase(dev, {})
         print(card_line())
         return 0
     if "--diffmesh" in sys.argv[1:]:
@@ -1926,6 +2121,7 @@ def main():
         ("ntri", _build.source("ntri.cu")),
         ("compact", _build.source("compact.cu")),
         ("classify_ext", mc33.kernel_source()),
+        ("label3d", _build.source("label3d.cu")),
     ])
     print("built %d libraries in %.1f s: %s" % (
         len(libs), time.time() - t0, ", ".join(p.name for p in libs)))
@@ -3134,15 +3330,18 @@ def main():
 
     diffmesh_phases(dev, kernels)
     sharded_phase(dev, kernels)
+    table_builder_phase(dev, kernels)
 
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
-                          "eval_classify_fields"]
+                          "eval_classify_fields", "label3d"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["sharded_launches", "diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
             "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
-            "kernel_only_ms_all_rows"]
+            "kernel_only_ms_all_rows", "workspace_bound_ms", "scipy_host_ms",
+            "shapes",
+            "build_wall_s", "build_busy_ms", "oracle_calls"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

@@ -25,9 +25,10 @@ on ``torch.distributed``): ``generate(mesh=)`` and ``save(mesh=)`` over z
 slabs or the dealt tile list, ``diffmesh.extract_sharded``,
 ``models.fit.make_sharded_fit_step`` and ``mesh=`` on the fitting helpers;
 ``parallel.initialize()`` joins a torchrun world (``chip_smoke.py --sharded``
-runs four ranks on one card).
-
-Still to come (ROADMAP.md): the generation of the MC33 tables (A17).
+runs four ranks on one card).  The generation of the lewiner tables:
+``core.mc33_build.build_tables`` (``tools/build_mc33_tables_torch.py``),
+whose topology oracle labels on the card with kernel L1
+(``chip_smoke.py --tables`` rebuilds the shipped tables there).
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it

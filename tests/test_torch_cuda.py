@@ -51,7 +51,8 @@ def cuda():
            for f in (th.example(sp), zoo.blobby(), _wide_expression())]
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
-           ("classify_ext", mc33.kernel_source())]
+           ("classify_ext", mc33.kernel_source()),
+           ("label3d", _build.source("label3d.cu"))]
     )
     return torch.device("cuda")
 
@@ -927,3 +928,38 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
         assert device == 0 and len(want) > 0
         assert np.array_equal(th.canon(full), th.canon(want)), sparse
         assert launched == launches, (sparse, launched)
+
+
+@pytest.mark.parametrize("n, nb", [(2, 3), (8, 9), (33, 5), (64, 9),
+                                   (128, 2)])
+def test_label_kernel_matches_plain(cuda, n, nb):
+    """Kernel L1 against its plain version on the card: the corner class
+    bits and canonical labels bit-equal, on realizations of cases with
+    ambiguous faces and tunnels; one launch a call."""
+    from sdf_torch.core import mc33_build as mb
+
+    rng = np.random.default_rng(n)
+    v = np.concatenate([mb.sample_realizations(c, nb, rng)
+                        for c in (90, 105, 165, 60)])
+    k = torch.from_numpy(mb.trilinear_coeffs(v)).to(cuda)
+    t = torch.from_numpy(np.linspace(0.0, 1.0, n)).to(cuda)
+    before = mb.label_corners.launches
+    got = mb.label_corners(k, t)
+    assert mb.label_corners.launches == before + 1
+    want = mb._label_corners_plain(k, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cpu = mb.label_corners(k.cpu(), t.cpu())
+    assert torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(),
+                                                             cpu[1])
+
+
+def test_build_tables_on_the_card_equals_cpu(cuda):
+    """The builder at (600, 3, 8), which escalates to n=256 and leaves 11
+    conflicted buckets: every array equal between the card and the CPU."""
+    from sdf_torch.core import mc33_build as mb
+
+    got = mb.build_tables(600, 3, 8, seed=7, device=cuda)
+    want = mb.build_tables(600, 3, 8, seed=7, device="cpu")
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key])

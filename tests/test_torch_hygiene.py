@@ -63,7 +63,8 @@ def test_import_leaves_jax_out():
 
 
 def _port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "build_mc33_tables_torch.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "sdf_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
     return paths
@@ -82,7 +83,8 @@ def test_sources_name_no_jax():
             "sdf_torch/ops/meshsdf.py", "sdf_torch/core/diffmesh.py",
             "sdf_torch/models/fit.py", "sdf_torch/parallel/grid.py",
             "sdf_torch/parallel/sparse.py", "sdf_torch/parallel/shards.py",
-            "sdf_torch/parallel/multihost.py"} <= names
+            "sdf_torch/parallel/multihost.py",
+            "tools/build_mc33_tables_torch.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:
@@ -105,7 +107,11 @@ def test_kernel_sources_are_shipped_and_named():
     # package data ships each of them (*.cu does not match the .cuh)
     assert sorted(os.listdir(csrc)) == [
         "classify_ext.cu", "compact.cu", "eval_classify.cu", "eval_tiles.cu",
-        "mc33_cell.cuh", "ntri.cu", "sdf_point.cuh"]
+        "label3d.cu", "mc33_cell.cuh", "ntri.cu", "sdf_point.cuh"]
+    with open(os.path.join(csrc, "label3d.cu")) as fp:
+        text = fp.read()
+    assert "Replaces: scipy.ndimage.label (host)" in text
+    assert 'extern "C" int sdf_label3d(' in text
     with open(os.path.join(ROOT, "pyproject.toml")) as fp:
         shipped = fp.read()
     assert '"csrc/*.cu"' in shipped and '"csrc/*.cuh"' in shipped
@@ -350,3 +356,64 @@ def test_no_branch_waits_for_the_multi_gpu_port():
         with open(path) as fp:
             text = fp.read()
         assert "A14" not in text, path
+
+
+def test_table_builder_tool_leaves_jax_out():
+    """tools/build_mc33_tables_torch.py and the builder it drives load
+    neither jax nor sdf_tpu (the tool run with --help, which parses after
+    the imports)."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['build_mc33_tables_torch.py', '--help']\n"
+        "try:\n"
+        "    runpy.run_path('tools/build_mc33_tables_torch.py',\n"
+        "                   run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "assert 'sdf_torch.core.mc33_build' in sys.modules\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'jaxlib', 'sdf_tpu'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--device" in r.stdout and "--out" in r.stdout
+
+
+def test_label_kernel_raises_when_its_library_fails(monkeypatch):
+    """Kernel L1's wrapper on a CUDA tensor whose library cannot be built
+    raises; it never falls back to the plain labeller."""
+    from sdf_torch import _build
+    from sdf_torch.core import mc33_build as mb
+
+    def no_library(stem, text):
+        raise RuntimeError("nvcc failed for %s" % stem)
+
+    plain = []
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(mb, "_label_corners_plain",
+                        lambda *a: plain.append(a))
+
+    class FakeCuda:
+        type = "cuda"
+
+    class FakeTensor:
+        dtype, device = torch.float64, FakeCuda()
+
+        def __init__(self, shape):
+            self.shape = shape
+
+        def dim(self):
+            return len(self.shape)
+
+        def is_contiguous(self):
+            return True
+
+    with pytest.raises(RuntimeError, match="nvcc failed for label3d"):
+        mb.label_corners(FakeTensor((9, 8)), FakeTensor((64,)))
+    assert plain == []
+    import inspect
+
+    assert "except" not in inspect.getsource(mb.label_corners)
