@@ -107,6 +107,27 @@ Phases, each printing its own lines:
      written npz is byte-equal to the shipped file is printed, not
      required; and the build once more under torch.profiler: the card's
      busy time and idle share, L1's share of it.
+ 22. the elementwise forms of the eval kernels' body: every op, operator
+     and method the recorder gives a form beyond the first twelve (tanh,
+     exp, log, ..., hypot, remainder, floor_divide, lerp, %, //, 2 ** t,
+     the number exponents of ** and torch.pow, t.tanh()) through B1 and
+     B6 on a grid of wide-spread and special values, in float32 and
+     float64, and the general powers (a form in float32 only), each
+     bit-equal to its plain version (volume and case); the library's pow
+     against torch.pow on 2**20 seeded inputs, equal in float32, its
+     float64 ulp gap printed; C4's models op(x*x+y*y+z*z) - 0.5 in +-2
+     for tanh, atan and exp(-t): 1,304 / 1,304 / 1,640 triangles at 2**15
+     (the reference's), then 2**22 float32 at the defaults and with
+     sparse="tiles" and 2**24 float64, each with counts within a stated
+     tolerance of the device="cpu" run and a soup bit-equal to the run
+     with B1/B6/B7 replaced by their plain versions on the card; an erf
+     model and a t.where(c, y) model (no form: hybrid.route_fields makes
+     each a field) with sparse=False (B1 once, one field) and "tiles" (B7
+     once), LAST_STATS naming the op, soups bit-equal to the plain
+     versions'; an eased in_out_quart model at 2**22, its power in B1's
+     body in float32 and a field in float64, timed against B1 with op_pow
+     in its float64 body; and enable_compile_cache: B1 built once in a
+     temporary directory, then the default restored.
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -156,6 +177,9 @@ in clusters that share their halos and in clusters of one block that
 evaluate them again, in both dtypes, each output held bit-equal to the
 default plan's.
 
+``python3 chip_smoke.py --elementwise`` builds phase 22's libraries and runs
+phase 22 alone.
+
 ``python3 chip_smoke.py --diffmesh`` builds kernels B2, B3 and B4 and runs
 phases 16 to 19 alone (a few minutes shorter than the whole script).
 
@@ -172,6 +196,7 @@ forced, on those grids and on 512 tile volumes; each run is held
 bit-equal to the default plan's output.
 """
 
+import contextlib
 import cProfile
 import hashlib
 import importlib.util
@@ -2036,6 +2061,530 @@ def table_builder_phase(dev, kernels):
     )
 
 
+# -- phase 22: every elementwise form of the eval kernels' body ---------------
+
+# Phase 22's grid for the forms: wide-spread axis values with the special
+# ones (signed zeros, halves, integers, the divisors' edges, huge, tiny, and
+# on z infinities and NaN); the arguments x * y + z and y - z mix them.
+ELEMENTWISE_SPECIAL = [0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0, 3.0, -3.0,
+                       0.7, -0.7, 1e-3, -1e-3, 1e-30, 88.0, -104.0, 1e20]
+ELEMENTWISE_TILE = 8
+# C4's model: op(x*x + y*y + z*z) - k at k = 0.5, meshed in +-2.
+C4_BOUNDS = ((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0))
+C4_TRIS_2P15 = {"tanh": 1304, "atan": 1304, "exp(-t)": 1640}
+# Card against device="cpu" at full width: transcendentals differ between
+# the CPU's SLEEF and the card's library by an ulp now and then, which can
+# flip a sign near the surface; tests/test_torch_elementwise.py states the
+# same tolerance for the port against the JAX package.
+C4_COUNT_RTOL = 1e-3
+C4_COUNT_ATOL = 8
+
+
+def elementwise_axes(dtype_np, n=(40, 36, 33), seed=22):
+    """The axes of phase 22's grid, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    axes = []
+    for k, m in enumerate(n):
+        rand = rng.standard_normal(m) * 10.0 ** rng.uniform(-3, 2, m)
+        a = np.concatenate([np.roll(ELEMENTWISE_SPECIAL, 5 * k), rand])[:m]
+        axes.append(a)
+    axes[2][-3:] = [np.inf, -np.inf, np.nan]
+    return [a.astype(dtype_np).astype(np.float64) for a in axes]
+
+
+def elementwise_forms():
+    """name -> fn(x, y, z) applying one form of the body, for every op,
+    operator and method the recorder gives a C++ form beyond the original
+    twelve (and the number exponents of ``**``)."""
+    import torch
+
+    t = lambda x, y, z: x * y + z
+    u = lambda x, y, z: y - z
+    forms = {}
+    for name in ("tanh", "exp", "expm1", "log", "log1p", "log2", "tan",
+                 "atan", "asin", "acos", "sinh", "cosh", "floor", "ceil",
+                 "trunc", "square", "rsqrt", "reciprocal", "exp2", "arctan",
+                 "arcsin", "arccos"):
+        forms[name] = (lambda x, y, z, f=getattr(torch, name):
+                       f(t(x, y, z)))
+    for name in ("hypot", "remainder", "floor_divide"):
+        forms[name] = (lambda x, y, z, f=getattr(torch, name):
+                       f(t(x, y, z), u(x, y, z)))
+    forms.update({
+        "lerp": lambda x, y, z: torch.lerp(x, y, z),
+        "lerp(w=0.3)": lambda x, y, z: torch.lerp(x, y, 0.3),
+        "lerp(w=0.7)": lambda x, y, z: torch.lerp(x, y, 0.7),
+        "t % 0.7": lambda x, y, z: t(x, y, z) % 0.7,
+        "t % -3": lambda x, y, z: t(x, y, z) % -3.0,
+        "3 % t": lambda x, y, z: 3.0 % t(x, y, z),
+        "t // 0.7": lambda x, y, z: t(x, y, z) // 0.7,
+        "t // -3": lambda x, y, z: t(x, y, z) // -3.0,
+        "t // 0": lambda x, y, z: t(x, y, z) // 0.0,
+        "3 // t": lambda x, y, z: 3.0 // t(x, y, z),
+        "2 ** t": lambda x, y, z: 2.0 ** t(x, y, z),
+        "1 ** t": lambda x, y, z: 1.0 ** t(x, y, z),
+        "t.tanh()": lambda x, y, z: t(x, y, z).tanh(),
+        "t.remainder(u)": lambda x, y, z: t(x, y, z).remainder(u(x, y, z)),
+    })
+    for e in (0, 1, 0.5, -0.5, 2, 3, -1, -2):
+        forms["t ** %s" % e] = lambda x, y, z, e=e: t(x, y, z) ** e
+        forms["pow(t, %s)" % e] = (lambda x, y, z, e=e:
+                                   torch.pow(t(x, y, z), e))
+    return forms
+
+
+def form_model(sp, fn):
+    """An SDF3 node whose own function is ``fn(x, y, z)``."""
+    return sp.SDF3(lambda q, p, fn=fn: fn(*p), {})
+
+
+def c4_model(sp, op, k=0.5):
+    """C4's model: ``op(x*x + y*y + z*z) - k``, an @sdf3 builder's node."""
+    import numpy as np
+
+    @sp.sdf3
+    def blob(k=k):
+        def fn(q, p):
+            x, y, z = p
+            return op(x * x + y * y + z * z) - q["k"]
+
+        return fn, {"k": np.float64(k)}
+
+    return blob()
+
+
+def c4_ops():
+    import torch
+
+    return {"tanh": torch.tanh, "atan": torch.atan,
+            "exp(-t)": lambda t: torch.exp(-t)}
+
+
+def erf_route_model(sp):
+    """Phase 22 (c): an erf blob (no form: a field) under a rotate, in a
+    union with a tanh blob (in the body)."""
+    import torch
+
+    return (c4_model(sp, torch.erf).rotate(0.3, sp.X)
+            | c4_model(sp, torch.tanh, 0.3).translate((0.8, 0, 0)))
+
+
+def where_route_model(sp):
+    """Phase 22 (c): ``t.where(t > 1, 0.5 t)``, which is ``torch.where(t > 1,
+    t, 0.5 t)`` (the method has no form: torch.where takes the tensor
+    second), in a union with a tanh blob (in the body)."""
+    import torch
+
+    return (c4_model(sp, lambda t: t.where(t > 1, t * 0.5), 0.3)
+            | c4_model(sp, torch.tanh, 0.3).translate((0.8, 0, 0)))
+
+
+ROUTE_MODELS = {"erf": erf_route_model, "where": where_route_model}
+
+
+def eased_model(sp):
+    """Phase 22 (e): a box eased into a sphere along z by in_out_quart,
+    whose ``t ** 4`` is a general power (op_pow in a float32 body, a field
+    in float64)."""
+    return sp.box(1.5).transition_linear(sp.sphere(1.0),
+                                         e=sp.ease.in_out_quart)
+
+
+def clear_route_memos():
+    """Empty the route's memos and the engine's, so the next generate()
+    tries its expression anew."""
+    from sdf_torch.core import engine, hybrid, sparse
+
+    for memo in (hybrid._ROUTE_MEMO, hybrid._ROUTED, engine._BOUNDS_MEMO,
+                 engine._COUNTS_MEMO, engine._SKIP_MEMO, sparse._COUNTS_MEMO):
+        memo.clear()
+
+
+class body_pow:
+    """Context manager: a general power recorded as ``op_pow`` in the eval
+    kernels' body in float64 too (where it is not bit-equal to PyTorch's
+    pow); the memos emptied on entry and exit."""
+
+    def __enter__(self):
+        from sdf_torch.core import eval_classify as ec
+
+        self.saved = ec.Rec._pow
+        ec.Rec._pow = lambda rec, a, b: rec._map("op_pow({}, {})", (a, b),
+                                                 "f")
+        clear_route_memos()
+        return self
+
+    def __exit__(self, *exc):
+        from sdf_torch.core import eval_classify as ec
+
+        ec.Rec._pow = self.saved
+        clear_route_memos()
+        return False
+
+
+def pow_forms():
+    """name -> fn(x, y, z): the general powers, which have a form in a
+    float32 body only."""
+    import torch
+
+    t = lambda x, y, z: x * y + z
+    u = lambda x, y, z: y - z
+    return {"t ** 1.5": lambda x, y, z: t(x, y, z) ** 1.5,
+            "t ** 4": lambda x, y, z: t(x, y, z) ** 4,
+            "t ** -3": lambda x, y, z: t(x, y, z) ** -3,
+            "pow(t, u)": lambda x, y, z: torch.pow(t(x, y, z), u(x, y, z)),
+            "3 ** t": lambda x, y, z: 3.0 ** t(x, y, z),
+            "t.pow(0.25)": lambda x, y, z: t(x, y, z).pow(0.25)}
+
+
+# The library's pow at a few exponents against torch.pow on the card: equal
+# in float32 (where the body has the form), and its ulp gap in float64
+# (where a general power routes as a field).
+POW_PROBE = {"pow(a, b)": "op_pow(a, b)", "pow(a, 1.5)": "op_pow(a, T(1.5))",
+             "pow(a, 4)": "op_pow(a, T(4))", "pow(3, a)": "op_pow(T(3), a)"}
+
+
+def pow_probe_source():
+    """A probe library of the body's ``op_pow`` at the exponents of
+    POW_PROBE, one entry a dtype each."""
+    from sdf_torch import _build
+
+    out = [_build.source("sdf_point.cuh")
+           .replace("//@SDF_BODY@", "  return x;")
+           .replace("//@SDF_PARAMS@", "#define SDF_NPARAMS 1\n"
+                    "#define SDF_PARAMS_IN_ARGS 1\n#define SDF_NFIELDS 0")]
+    for i, form in enumerate(POW_PROBE.values()):
+        out.append(
+            "template <typename T> __global__ void pow%(i)d(const T* A, "
+            "const T* B, T* O, long n) {\n"
+            "  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;\n"
+            "  if (i < n) { T a = A[i], b = B[i]; (void)b; O[i] = %(f)s; }"
+            "\n}\n"
+            "extern \"C\" int pow%(i)d_f64(const void* a, const void* b, "
+            "void* o, long n) {\n"
+            "  pow%(i)d<double><<<(n + 255) / 256, 256>>>((const double*)a, "
+            "(const double*)b, (double*)o, n);\n"
+            "  return (int)cudaGetLastError();\n}\n"
+            "extern \"C\" int pow%(i)d_f32(const void* a, const void* b, "
+            "void* o, long n) {\n"
+            "  pow%(i)d<float><<<(n + 255) / 256, 256>>>((const float*)a, "
+            "(const float*)b, (float*)o, n);\n"
+            "  return (int)cudaGetLastError();\n}\n" % dict(i=i, f=form))
+    return "\n".join(out)
+
+
+def elementwise_sources(sp, eval_classify, hybrid):
+    """Every kernel library phase 22 loads: B1 and B6/B7 for each form, for
+    C4's models, for the general powers and the eased model in float32,
+    for the routed models and the eased model routed (float64), and the
+    pow probe."""
+    import torch
+
+    models = [form_model(sp, fn) for fn in elementwise_forms().values()]
+    models += [c4_model(sp, op) for op in c4_ops().values()]
+    out = []
+    for f in models:
+        out += [("eval_classify", eval_classify.kernel_source(f)),
+                ("eval_tiles", eval_classify.tile_kernel_source(f))]
+    f32 = torch.float32
+    for f in [form_model(sp, fn) for fn in pow_forms().values()] + [
+            eased_model(sp)]:
+        out += [("eval_classify", eval_classify.kernel_source(f, dtype=f32)),
+                ("eval_tiles", eval_classify.tile_kernel_source(f,
+                                                                dtype=f32))]
+    for build in list(ROUTE_MODELS.values()) + [eased_model]:
+        tree, _ = hybrid.route_fields(build(sp))
+        tree = hybrid.to_kernel_tree(tree)
+        out += [("eval_classify", eval_classify.kernel_source(tree, 1)),
+                ("eval_tiles", eval_classify.tile_kernel_source(tree, 1))]
+    return out + [("pow_probe", pow_probe_source())]
+
+
+class plain_eval_kernels:
+    """Context manager: kernels B1, B6 and B7 replaced by their plain
+    versions on the card (the wrappers' counts stay untouched)."""
+
+    def __enter__(self):
+        from sdf_torch.core import eval_classify as ec
+
+        self.saved = ec._launch, ec._launch_tiles
+
+        def b1(sdf, X, Y, Z, dtype, device, lx=None, fields=()):
+            return ec._eval_classify_plain(sdf, X, Y, Z, dtype, device,
+                                           fields)
+
+        def tiles(sdf, X, Y, Z, tiles, tile, dtype, live, fields, counter,
+                  blocks=None, csize=None):
+            # B6 clamps its indices to the grid; B7's axes are padded.
+            return ec._plain_tiles(
+                sdf, X, Y, Z, tiles, tile, dtype, live, fields=fields,
+                clamp=counter is ec.eval_tiles_and_classify_batched)
+
+        ec._launch, ec._launch_tiles = b1, tiles
+        return self
+
+    def __exit__(self, *exc):
+        from sdf_torch.core import eval_classify as ec
+
+        ec._launch, ec._launch_tiles = self.saved
+        return False
+
+
+def ulp_gap(a, b):
+    """Largest distance in ulps between two float32 or float64 tensors
+    (NaN against NaN counts 0) and how many elements differ."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    ia, ib = a.view(ints).long(), b.view(ints).long()
+    key = lambda i: torch.where(i < 0, torch.iinfo(ints).min - i, i)
+    diff = (ia != ib) & ~(torch.isnan(a) & torch.isnan(b))
+    if not bool(diff.any()):
+        return 0, 0
+    gap = (key(ia)[diff] - key(ib)[diff]).abs()
+    return int(gap.max()), int(diff.sum())
+
+
+def elementwise_phase(dev, kernels):
+    """Phase 22: each elementwise form in B1 and B6 against the plain
+    version on the card, C4's models at full width, an erf model through
+    the automatic field route (B1 and B7 reading its field), the float64
+    gap of pow (off the table), and enable_compile_cache."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch import _build
+    from sdf_torch.core import engine, eval_classify as ec, hybrid
+
+    print("== phase 22: the elementwise forms of the eval kernels, C4's "
+          "models, the automatic field route", flush=True)
+
+    def same_bits(a, b):
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        if a.dtype in ints:
+            a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+        return torch.equal(a, b)
+
+    # (a) every form, B1 and B6, both dtypes, bit-equal with NaN payloads;
+    # the general powers in float32
+    bad = []
+    for dt, nd in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        forms = dict(elementwise_forms())
+        if dt == torch.float32:
+            forms.update(pow_forms())
+        X, Y, Z = elementwise_axes(nd)
+        shape = [-(-(len(a) - 1) // ELEMENTWISE_TILE) for a in (X, Y, Z)]
+        tiles = torch.as_tensor(np.ascontiguousarray(
+            np.argwhere(np.ones(shape, bool)), np.int32), device=dev)
+        for name, fn in forms.items():
+            f = form_model(sp, fn)
+            vk, ck = ec.eval_and_classify(f, X, Y, Z, dt, dev)
+            vp, cp = ec._eval_classify_plain(f, X, Y, Z, dt, dev)
+            tk, tck = ec.eval_tiles_and_classify_batched(
+                f, X, Y, Z, tiles, ELEMENTWISE_TILE, dt)
+            tp, tcp = ec._plain_tiles(f, X, Y, Z, tiles, ELEMENTWISE_TILE,
+                                      dt, None)
+            torch.cuda.synchronize()
+            for kernel, ok in (
+                    ("B1", same_bits(vk, vp) and torch.equal(ck, cp)),
+                    ("B6", same_bits(tk, tp) and torch.equal(tck, tcp))):
+                if not ok:
+                    bad.append("%s %s %s" % (kernel, name,
+                                             str(dt).split(".")[1]))
+        print("  %s: %d forms through B1 (%d points) and B6 (%d tiles of "
+              "%d^3)" % (str(dt).split(".")[1], len(forms), vk.numel(),
+                         len(tiles), ELEMENTWISE_TILE + 1), flush=True)
+    check(not bad, "every form bit-equal to its plain version in B1 and B6, "
+          "volumes and cases, float32 and float64, and the general powers "
+          "in float32%s" % ("" if not bad else ": not " + ", ".join(bad)))
+
+    # the library's pow against torch.pow: equal in float32, its float64 gap
+    lib = ctypes.CDLL(str(_build.build_many([("pow_probe",
+                                              pow_probe_source())])[0]))
+    rng = np.random.default_rng(221)
+    n = 1 << 20
+    A64 = torch.as_tensor(np.abs(rng.standard_normal(n))
+                          * 10.0 ** rng.uniform(-3, 3, n), device=dev)
+    B64 = torch.as_tensor(rng.uniform(-8, 8, n), device=dev)
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        A, B = A64.to(dt), B64.to(dt)
+        want = {"pow(a, b)": lambda: torch.pow(A, B),
+                "pow(a, 1.5)": lambda: torch.pow(A, 1.5),
+                "pow(a, 4)": lambda: torch.pow(A, 4),
+                "pow(3, a)": lambda: torch.pow(3.0, B)}
+        for i, (name, form) in enumerate(POW_PROBE.items()):
+            arg = B if "(3, a)" in name else A
+            out = torch.empty_like(A)
+            entry = getattr(lib, "pow%d_%s" % (i, tag))
+            entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
+            _build.check(entry(arg.data_ptr(), B.data_ptr(), out.data_ptr(),
+                               n), "pow probe")
+            gap, count = ulp_gap(out, want[name]())
+            what = ("%s %s (%s): %d of %d differ from torch.pow on the "
+                    "card, at most %d ulp" % (str(dt).split(".")[1], name,
+                                              form, count, n, gap))
+            if dt == torch.float32:
+                check(count == 0, "in the body, " + what)
+            else:
+                print("  a field, " + what)
+
+    # (b) C4's models at full width
+    wrappers = {"eval_classify": ec.eval_and_classify,
+                "eval_tiles_batched": ec.eval_tiles_and_classify_batched,
+                "eval_tiles": ec.eval_tiles_and_classify}
+
+    def drive(f, **kw):
+        for w in wrappers.values():
+            w.launches = 0
+        pts = sp.generate(f, verbose=False, bounds=C4_BOUNDS, **kw)
+        torch.cuda.synchronize()
+        return pts, {k: w.launches for k, w in wrappers.items()}
+
+    def plain(f, **kw):
+        with plain_eval_kernels():
+            return sp.generate(f, verbose=False, bounds=C4_BOUNDS, **kw)
+
+    for label, op in c4_ops().items():
+        pts, counts = drive(c4_model(sp, op), samples=2**15)
+        check(len(pts) // 3 == C4_TRIS_2P15[label]
+              and np.array_equal(pts, plain(c4_model(sp, op), samples=2**15)),
+              "%s at 2^15: %d triangles (the reference's), soup bit-equal "
+              "to the plain B1's" % (label, C4_TRIS_2P15[label]))
+        runs = [("2^22 float32 defaults", dict(samples=2**22)),
+                ("2^22 float32 sparse='tiles'",
+                 dict(samples=2**22, sparse="tiles")),
+                ("2^24 float64 defaults",
+                 dict(samples=2**24, dtype=torch.float64))]
+        for run, kw in runs:
+            t0 = time.perf_counter()
+            pts, counts = drive(c4_model(sp, op), **kw)
+            wall = time.perf_counter() - t0
+            st = dict(engine.LAST_STATS)
+            kernel = ("eval_tiles_batched" if kw.get("sparse") == "tiles"
+                      or "auto_tiles" in st else "eval_classify")
+            cpu = sp.generate(c4_model(sp, op), verbose=False, device="cpu",
+                              bounds=C4_BOUNDS, **kw)
+            n, m = len(pts) // 3, len(cpu) // 3
+            print("  %s %s: %d triangles in %.2f s (device='cpu' %d), "
+                  "launches %s" % (label, run, n, wall, m, counts))
+            check(counts[kernel] == 1 and "field_route_ops" not in st
+                  and n > 0 and bool(np.isfinite(pts).all())
+                  and abs(n - m) <= max(C4_COUNT_ATOL, C4_COUNT_RTOL * m),
+                  "%s %s: %s launched, no field route, counts within "
+                  "max(%d, %g x) of device='cpu'" % (
+                      label, run, kernel, C4_COUNT_ATOL, C4_COUNT_RTOL))
+            check(np.array_equal(pts, plain(c4_model(sp, op), **kw)),
+                  "%s %s: soup bit-equal to the run with the plain B1/B6 on "
+                  "the card" % (label, run))
+            del pts, cpu
+
+    # (c) the erf and where models through the automatic field route
+    for op, build in ROUTE_MODELS.items():
+        for sparse, kernel in ((False, "eval_classify"),
+                               ("tiles", "eval_tiles")):
+            pts, counts = drive(build(sp), samples=2**22, sparse=sparse)
+            st = dict(engine.LAST_STATS)
+            print("  %s route sparse=%r: %d triangles, launches %s, route %s"
+                  % (op, sparse, len(pts) // 3, counts,
+                     st.get("field_route_ops")))
+            others = sum(v for k, v in counts.items() if k != kernel)
+            check(counts[kernel] == 1 and others == 0
+                  and st.get("field_route_ops") == (op,)
+                  and st.get("field_route_nodes") == 1 and len(pts) > 0,
+                  "%s model sparse=%r: %s once, reading the %s subtree's one "
+                  "field, LAST_STATS names %s" % (op, sparse, kernel, op, op))
+            check(np.array_equal(pts, plain(build(sp), samples=2**22,
+                                            sparse=sparse)),
+                  "%s model sparse=%r: soup bit-equal to the plain version's "
+                  "on the card" % (op, sparse))
+
+    # (e) a general power: the eased model at 2^22, op_pow in B1's body in
+    # float32; in float64 its node a field (the pre-pass of torch ops, then
+    # B1 reading it), against B1 with op_pow in its body (not bit-equal to
+    # torch in float64).  Card time of the eval (B1 and its pre-pass) and
+    # generate()'s wall, warm
+    eased = {}
+    for label, dt, ctx in (
+            ("float32, body", torch.float32, contextlib.nullcontext()),
+            ("float64, route", torch.float64, contextlib.nullcontext()),
+            ("float64, op_pow in the body", torch.float64, body_pow())):
+        clear_route_memos()
+        with ctx:
+            f = eased_model(sp)
+            tree, ops = hybrid.route_fields(f, dtype=dt)
+            X, Y, Z = grid_axes(f, 2**22, dt, bounds=C4_BOUNDS)
+
+            def evaluate(tree=tree, X=X, Y=Y, Z=Z, dt=dt):
+                fields = ec.record_fields(tree, X, Y, Z, dt, dev)
+                return ec.eval_and_classify(tree, X, Y, Z, dt, dev, fields)
+
+            vol, _ = evaluate()
+            ms = device_ms(evaluate, reps=10)
+            pts, counts = drive(eased_model(sp), samples=2**22, dtype=dt)
+            st = dict(engine.LAST_STATS)
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                drive(eased_model(sp), samples=2**22, dtype=dt)
+                walls.append(time.perf_counter() - t0)
+            eased[label] = (vol, pts)
+            print("  eased in_out_quart 2^22 %s: route %s, eval card time "
+                  "%.4f ms, generate wall %.4f s (median of 5, warm; %s), "
+                  "%d triangles, launches %s" % (
+                      label, st.get("field_route_ops"), ms,
+                      statistics.median(walls),
+                      " ".join("%.4f" % w for w in walls), len(pts) // 3,
+                      counts))
+            if "op_pow" not in label:
+                check(st.get("field_route_ops") == (None if dt ==
+                                                    torch.float32
+                                                    else ("pow",))
+                      and len(pts) > 0 and np.array_equal(
+                          pts, plain(eased_model(sp), samples=2**22,
+                                     dtype=dt)),
+                      "eased model %s: %s, soup bit-equal to the plain "
+                      "version's on the card" % (
+                          label, "no route" if dt == torch.float32
+                          else "LAST_STATS names pow"))
+    clear_route_memos()
+    gap, count = ulp_gap(eased["float64, op_pow in the body"][0],
+                         eased["float64, route"][0])
+    print("  eased model float64, op_pow in B1 against the routed field: "
+          "%d of %d volume values differ, at most %d ulp; soups equal %s"
+          % (count, eased["float64, route"][0].numel(), gap, np.array_equal(
+              eased["float64, route"][1],
+              eased["float64, op_pow in the body"][1])))
+    del eased
+
+    # (d) enable_compile_cache: B1 built once in another directory
+    tmp = tempfile.mkdtemp(prefix="sdf_torch_cache.")
+    try:
+        check(sp.enable_compile_cache(tmp) == _build.BUILD
+              and str(_build.BUILD) == tmp, "enable_compile_cache moves "
+              "the build directory")
+        X = np.linspace(-1.2, 1.2, 40)
+        vk, _ = ec.eval_and_classify(example(sp), X, X, X, torch.float32,
+                                     dev)
+        built = sorted(os.listdir(tmp))
+        check(len(built) == 1 and built[0].startswith("eval_classify_")
+              and built[0].endswith(".so"),
+              "B1 built once there: %s" % built)
+    finally:
+        sp.enable_compile_cache(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    vd, _ = ec.eval_and_classify(example(sp), X, X, X, torch.float32, dev)
+    check(_build.BUILD == _build.DEFAULT_BUILD and same_bits(vk, vd),
+          "enable_compile_cache(None) restores %s; the two libraries agree"
+          % _build.DEFAULT_BUILD)
+
+
 def main():
     import numpy as np
     import torch
@@ -2068,6 +2617,15 @@ def main():
     if "--tables" in sys.argv[1:]:
         _build.build_many([("label3d", _build.source("label3d.cu"))])
         table_builder_phase(dev, {})
+        print(card_line())
+        return 0
+    if "--elementwise" in sys.argv[1:]:
+        t0 = time.time()
+        libs = _build.build_many(elementwise_sources(sp, eval_classify,
+                                                     hybrid))
+        print("built %d libraries in %.1f s" % (len(set(libs)),
+                                                time.time() - t0))
+        elementwise_phase(dev, {})
         print(card_line())
         return 0
     if "--diffmesh" in sys.argv[1:]:
@@ -2122,9 +2680,10 @@ def main():
         ("compact", _build.source("compact.cu")),
         ("classify_ext", mc33.kernel_source()),
         ("label3d", _build.source("label3d.cu")),
-    ])
+    ] + elementwise_sources(sp, eval_classify, hybrid))
     print("built %d libraries in %.1f s: %s" % (
-        len(libs), time.time() - t0, ", ".join(p.name for p in libs)))
+        len(set(libs)), time.time() - t0,
+        ", ".join(sorted({p.name for p in libs}))))
 
     # -- phase 3 ---------------------------------------------------------------
     print("== phase 3: kernels against their plain versions", flush=True)
@@ -3331,6 +3890,7 @@ def main():
     diffmesh_phases(dev, kernels)
     sharded_phase(dev, kernels)
     table_builder_phase(dev, kernels)
+    elementwise_phase(dev, kernels)
 
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",

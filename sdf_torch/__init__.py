@@ -28,10 +28,33 @@ slabs or the dealt tile list, ``diffmesh.extract_sharded``,
 runs four ranks on one card).  The generation of the lewiner tables:
 ``core.mc33_build.build_tables`` (``tools/build_mc33_tables_torch.py``),
 whose topology oracle labels on the card with kernel L1
-(``chip_smoke.py --tables`` rebuilds the shipped tables there).
+(``chip_smoke.py --tables`` rebuilds the shipped tables there).  Any torch
+elementwise expression in a user's ``@sdf3``: the eval kernels carry the
+common ops, and a subtree that calls another one is evaluated ahead as a
+field (``core.hybrid.route_fields``, named in ``LAST_STATS``).
+``enable_compile_cache(path)`` moves the directory of compiled kernels.
 """
 
 import numpy as np  # the reference's star-export leaks np; scripts rely on it
+
+
+def enable_compile_cache(path=None):
+    """Keep the compiled CUDA kernels in the directory ``path`` (made on
+    first use) instead of ``build/sdf_torch/`` beside the package, the
+    default, which ``path=None`` restores; returns the directory.  The
+    port's cache is the directory of nvcc libraries that ``sdf_torch._build``
+    keys by the sha256 of each kernel's source and flags: a later process
+    that points here loads them without compiling.
+
+    Unlike the JAX package there is no variable to turn the cache off
+    (``SDF_TPU_NO_COMPILE_CACHE``): a library loaded with ``ctypes`` must
+    exist on disk, so some directory always holds it.  For a cache that
+    lives no longer than one process, pass a fresh directory:
+    ``enable_compile_cache(tempfile.mkdtemp())``."""
+    from . import _build
+
+    return _build.set_directory(path)
+
 
 from .utils.util import pi, degrees, radians
 

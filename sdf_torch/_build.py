@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel source under ``sdf_torch/csrc/`` has a plain C interface and is
-compiled at first use by ``nvcc`` into a shared library under
-``build/sdf_torch/`` of the checkout, named by the sha256 of its source and
-flags, then loaded with ``ctypes``.  Nothing here runs at import: the CPU
-tests import every kernel module on machines without ``nvcc``.
+compiled at first use by ``nvcc`` into a shared library in ``BUILD``
+(``build/sdf_torch/`` of the checkout unless ``set_directory``, which is
+``sdf_torch.enable_compile_cache``, moved it), named by the sha256 of its
+source and flags, then loaded with ``ctypes``.  Nothing here runs at
+import: the CPU tests import every kernel module on machines without
+``nvcc``.
 
 Flags: ``-fmad=false`` and no fast math, so every float op rounds as the
 separate PyTorch kernels of the plain versions do (bit-identical volumes,
@@ -24,7 +26,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD = Path(__file__).resolve().parent.parent / "build" / "sdf_torch"
+DEFAULT_BUILD = Path(__file__).resolve().parent.parent / "build" / "sdf_torch"
+BUILD = DEFAULT_BUILD  # read under _lock, when a library is built or loaded
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +47,15 @@ def nvcc():
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def set_directory(path=None):
+    """Build and find the libraries in ``path`` from now on; None restores
+    ``DEFAULT_BUILD``.  Returns the directory."""
+    global BUILD
+    with _lock:
+        BUILD = DEFAULT_BUILD if path is None else Path(path).expanduser()
+        return BUILD
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,24 +107,23 @@ def _finish(so, pending):
 def build_many(items):
     """Build ``[(stem, source text), ...]`` with one nvcc per source, all
     started together; returns the library paths."""
-    unique = {}
-    for stem, text in items:
-        unique.setdefault(_lib_path(stem, text), (stem, text))
     with _lock:
+        paths = [_lib_path(stem, text) for stem, text in items]
+        unique = dict(zip(paths, items))
         started = [_start(stem, text) for stem, text in unique.values()]
         for so, pending in started:
             _finish(so, pending)
-    return [_lib_path(stem, text) for stem, text in items]
+    return paths
 
 
 def load(stem, text):
     """The ``ctypes`` library built from ``text`` (built on first use)."""
-    so = _lib_path(stem, text)
     with _lock:
+        so = _lib_path(stem, text)
         lib = _libs.get(so)
         if lib is not None:
             return lib
-    build_many([(stem, text)])
+    (so,) = build_many([(stem, text)])
     with _lock:
         lib = _libs.get(so)
         if lib is None:

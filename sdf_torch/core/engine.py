@@ -469,7 +469,10 @@ def generate(
     every batch densely.  An expression with gather-marked subtrees
     (``core.hybrid``) takes the same routes: kernel B1 on the dense grid
     and kernel B7 on the tiles read the subtrees' fields, recorded ahead
-    with torch ops.
+    with torch ops.  So does every subtree whose own function calls an op
+    the kernels' body has no form for (``hybrid.route_fields``; such a run
+    names the ops in ``LAST_STATS["field_route_ops"]`` and counts the
+    subtrees in ``["field_route_nodes"]``).
 
     ``mesh=`` (a 1-D ``DeviceMesh`` of ``torch.distributed``, see
     ``parallel.make_mesh``) shards the run over its ranks, one process and
@@ -498,6 +501,13 @@ def generate(
     elif sparse != "tiles":
         raise ValueError("sparse must be True, False or 'tiles'")
     mesh = _resolve_mesh(mesh, device)
+    # Subtrees whose ops have no form in the eval kernels' body become
+    # recorded fields (the reference's fallback from its kernel to XLA).
+    sdf, routed_ops = hybrid.route_fields(sdf, stats, dtype)
+    if routed_ops and verbose:
+        print("%d subtree(s) evaluated ahead as fields, for want of a "
+              "kernel form of: %s" % (len(routed_ops),
+                                      ", ".join(sorted(set(routed_ops)))))
     if mesh is not None and checkpoint is not None:
         raise ValueError("checkpoint= is not supported with a mesh: each "
                          "rank holds only its share of the mesh")

@@ -24,8 +24,10 @@ instantiation per dtype of ``csrc/eval_tiles.cu`` (launch plan
 With ``live`` they evaluate the live rows and one padded row and copy it
 over the rest.  Their plain pair is ``_eval_tiles`` + ``mc._cell_cases``.
 
-Ops with no C++ form raise ``NotImplementedError`` naming the op on the
-card.
+An op, operator or tensor method with no C++ form raises ``NoCppForm``
+(a ``NotImplementedError``) naming it; ``core.hybrid.route_fields``, which
+the engine applies before any of these kernels, turns each node whose own
+function raises it into a field that the kernels read.
 """
 
 from __future__ import annotations
@@ -58,10 +60,12 @@ MAX_ARG_PARAMS = 384
 
 
 class _Emitter:
-    """Collects the generated body: one ``const`` statement per op."""
+    """Collects the generated body: one ``const`` statement per op.
+    ``dtype`` is the one dtype the body will run in, or None for both."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         self.lines = []
+        self.dtype = dtype
 
     def var(self, kind, expr):
         name = "v%d" % len(self.lines)
@@ -89,6 +93,27 @@ def _scalar(expr):
 
 def _kind_of(v):
     return "b" if isinstance(v, (bool, np.bool_)) else "f"
+
+
+class NoCppForm(NotImplementedError):
+    """An op, operator or tensor method that the generated per-point body
+    cannot hold: it has no C++ form in ``csrc/sdf_point.cuh``.  ``op`` is
+    its name."""
+
+    def __init__(self, op):
+        self.op = op
+        super().__init__("op %r has no C++ form in the CUDA eval kernel" % op)
+
+
+# torch.pow by a Python number (ATen's pow.Tensor_Scalar on CUDA): these
+# exponents take their own kernels; any other one calls pow (Rec._pow).
+_POW_NUMBER = {0: "T(1)", 1: "{0}", 2: "({0} * {0})", 3: "({0} * {0} * {0})",
+               0.5: "op_sqrt({0})", -0.5: "op_rsqrt({0})", -1: "(T(1) / {0})",
+               -2: "(T(1) / ({0} * {0}))"}
+
+
+def _is_number(v):
+    return isinstance(v, numbers.Number) and not isinstance(v, bool)
 
 
 class Rec:
@@ -191,17 +216,41 @@ class Rec:
         return self._map("op_abs({})", (self,), "f")
 
     def __pow__(self, o):
-        fmt = {2: "({0} * {0})", 3: "({0} * {0} * {0})",
-               0.5: "op_sqrt({0})", -1: "(T(1) / {0})",
-               -2: "(T(1) / ({0} * {0}))"}.get(o)
-        if fmt is not None:
-            return self._map(fmt, (self,), "f")
-        return self._map("op_pow({}, {})", (self, o), "f")
+        if _is_number(o) and o in _POW_NUMBER:
+            return self._map(_POW_NUMBER[o], (self,), "f")
+        return self._pow(self, o)
 
     def __rpow__(self, o):
-        if o == 2:
-            return self._map("op_exp2({})", (self,), "f")
-        return self._map("op_pow({}, {})", (o, self), "f")
+        # ATen's pow.Scalar: a base of 1 fills, any other calls pow.
+        if _is_number(o) and o == 1:
+            return self._map("T(1)", (self,), "f")
+        return self._pow(o, self)
+
+    def _pow(self, a, b):
+        # The library's pow, as ATen's kernel calls it: in float32 it equals
+        # PyTorch's on the card; in float64 it differs from it by an ulp
+        # now and then (PyTorch's build contracts the library's pow into
+        # FMAs), but for a base of 2.  So a general power has a float64
+        # form only as 2 ** t, and a body for both dtypes has none.
+        if self.em.dtype == torch.float32 or (_is_number(a) and a == 2):
+            return self._map("op_pow({}, {})", (a, b), "f")
+        raise NoCppForm("pow")
+
+    def __mod__(self, o):
+        return self._map("op_remainder({}, {})", (self, o), "f")
+
+    def __rmod__(self, o):
+        return self._map("op_remainder({}, {})", (o, self), "f")
+
+    def __floordiv__(self, o):
+        if _is_number(o):
+            if o == 0:  # ATen takes the true division by the number
+                return self / o
+            return self._map("op_floordiv_number({}, {})", (self, o), "f")
+        return self._map("op_floordiv({}, {})", (self, o), "f")
+
+    def __rfloordiv__(self, o):
+        return self._map("op_floordiv({}, {})", (o, self), "f")
 
     def __lt__(self, o):
         return self._map("({} < {})", (self, o), "b")
@@ -234,20 +283,50 @@ class Rec:
     def __invert__(self):
         return self._map("(!{})", (self,), "b")
 
+    def __getattr__(self, name):
+        # A tensor method whose torch function takes the tensor first, as
+        # the method does, records as that function (``x.tanh()``); any
+        # other tensor method has no form (``t.where(c, y)`` is
+        # ``torch.where(c, t, y)``, not ``torch.where(t, c, y)``).
+        if name.startswith("_") or not hasattr(torch.Tensor, name):
+            raise AttributeError(name)
+        if name not in _METHODS:
+            raise NoCppForm(name)
+        func = _METHODS[name]
+        return lambda *args, **kwargs: Rec.__torch_function__(
+            func, (Rec,), (self,) + args, kwargs)
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", repr(func))
         kwargs = kwargs or {}
         rec = next(a for a in list(args) + list(kwargs.values())
                    if isinstance(a, Rec))
+        # A form takes exactly its operands: an option it would ignore
+        # (``torch.round(x, decimals=1)``, ``out=``) has no form.
+        arity = _ARITY.get(func)
+        if arity is not None and (len(args) != arity or kwargs):
+            raise NoCppForm(name)
+        if func is torch.clamp and (len(args) > 3
+                                    or set(kwargs) - {"min", "max"}):
+            raise NoCppForm(name)
         if func in _UNARY:
-            return rec._map(_UNARY[func], (args[0],), "f")
+            return rec._map(_UNARY[func], args, "f")
         if func in _BINARY:
-            return rec._map(_BINARY[func], args[:2], "f")
+            return rec._map(_BINARY[func], args, "f")
+        if func is torch.pow:
+            a, b = args
+            return a.__pow__(b) if isinstance(a, Rec) else b.__rpow__(a)
+        if func is torch.floor_divide:
+            a, b = args
+            return (a.__floordiv__(b) if isinstance(a, Rec)
+                    else b.__rfloordiv__(a))
+        if func is torch.lerp:
+            return rec._map("op_lerp({}, {}, {})", args, "f")
         if func is torch.where:
-            c, a, b = args
-            return rec._map("({} ? {} : {})", (c, a, b), "f")
+            return rec._map("({} ? {} : {})", args, "f")
         if func is torch.logical_and:
-            return rec._map("({} && {})", args[:2], "b")
+            return rec._map("({} && {})", args, "b")
         if func is torch.clamp:
             x = args[0]
             lo = kwargs.get("min", args[1] if len(args) > 1 else None)
@@ -263,12 +342,11 @@ class Rec:
             expr = np.empty(args[0].shape, dtype=object)
             expr[...] = _lit(v)
             return Rec(rec.em, expr)
-        name = getattr(func, "__name__", repr(func))
-        raise NotImplementedError(
-            "op %r has no C++ form in the CUDA eval kernel" % name
-        )
+        raise NoCppForm(name)
 
 
+# Each form computes what PyTorch's CUDA kernel of the op computes, so the
+# plain version on the card is bit-equal (chip_smoke.py phase 22).
 _UNARY = {
     torch.abs: "op_abs({})",
     torch.sqrt: "op_sqrt({})",
@@ -277,13 +355,35 @@ _UNARY = {
     torch.round: "op_round({})",
     torch.sign: "op_sign({})",
     torch.neg: "(-{})",
+    torch.square: "({0} * {0})",
+    torch.reciprocal: "(T(1) / {})",
+    torch.exp2: "op_exp2({})",
 }
+_UNARY.update({getattr(torch, name): "op_%s({})" % name for name in (
+    "tanh", "exp", "expm1", "log", "log1p", "log2", "tan", "atan", "asin",
+    "acos", "sinh", "cosh", "floor", "ceil", "trunc", "rsqrt")})
+_UNARY.update({torch.arctan: _UNARY[torch.atan],
+               torch.arcsin: _UNARY[torch.asin],
+               torch.arccos: _UNARY[torch.acos]})
 _BINARY = {
     torch.minimum: "op_min({}, {})",
     torch.maximum: "op_max({}, {})",
     torch.atan2: "op_atan2({}, {})",
     torch.fmod: "op_fmod({}, {})",
+    torch.hypot: "op_hypot({}, {})",
+    torch.remainder: "op_remainder({}, {})",
 }
+# The operand count of each function that records; it takes no keyword.
+_ARITY = dict.fromkeys(_UNARY, 1)
+_ARITY.update(dict.fromkeys(_BINARY, 2))
+_ARITY.update({torch.pow: 2, torch.floor_divide: 2, torch.lerp: 3,
+               torch.where: 3, torch.logical_and: 2, torch.zeros_like: 1,
+               torch.ones_like: 1, torch.full_like: 2})
+# The tensor methods that record: each the torch function of its name,
+# which takes the tensor as its first operand (so not ``where``).
+_METHODS = {f.__name__: f for f in list(_ARITY) + [torch.clamp]
+            if f not in (torch.where, torch.zeros_like, torch.ones_like,
+                         torch.full_like)}
 
 
 def _bind(sdf, em):
@@ -320,28 +420,39 @@ def _check_fields(nf):
         )
 
 
-def _source(template, sdf, nf=None):
+def record(sdf, dim=3, dtype=None):
+    """Run the expression's own code once on ``Rec`` values at the point
+    ``(x, y, z)`` (its first ``dim`` components): ``(emitter, result, the
+    number of field inputs its placeholders read)``.  ``dtype`` is the one
+    dtype the body will run in (None: both).  Raises ``NoCppForm`` at an
+    op the body cannot hold in it."""
+    em = _Emitter(dtype)
+    node = _bind(sdf, em)
+    p = Points(*[Rec(em, n) for n in ("x", "y", "z")[:dim]])
+    read = lambda k: Rec(em, em.var("f", "F.p[%d][fi]" % k))
+    with hybrid.kernel_fields(read) as fields:
+        d = node.fn(node.params, p)
+    return em, d, fields.taken
+
+
+def _source(template, sdf, nf=None, dtype=None):
     """The kernel source ``template`` for ``sdf``'s structure: the shared
     per-point piece ``csrc/sdf_point.cuh`` spliced in at its include line,
     with the recorded body inserted.  The gather-marked subtrees of ``sdf``
     become placeholders (``hybrid.to_kernel_tree``) whose statements read
     the field inputs in evaluation order; ``nf``, when given, is the number
-    of fields the caller recorded, and must be the number read."""
+    of fields the caller recorded, and must be the number read.  ``dtype``
+    is the one dtype the caller launches (None: a source for both)."""
     _check_fields(nf or 0)
     if hybrid.count_gathers(sdf):
         sdf = hybrid.to_kernel_tree(sdf)
-    em = _Emitter()
-    node = _bind(sdf, em)
-    p = Points(*[Rec(em, n) for n in ("x", "y", "z")])
-    read = lambda k: Rec(em, em.var("f", "F.p[%d][fi]" % k))
-    with hybrid.kernel_fields(read) as fields:
-        d = node.fn(node.params, p)
-    if nf is not None and fields.taken != nf:
+    em, d, taken = record(sdf, dtype=dtype)
+    if nf is not None and taken != nf:
         raise ValueError(
             "the expression reads %d field inputs, %d were recorded"
-            % (fields.taken, nf)
+            % (taken, nf)
         )
-    _check_fields(fields.taken)
+    _check_fields(taken)
     if isinstance(d, numbers.Number):
         d = Rec(em, _lit(d))
     if not isinstance(d, Rec) or d.shape != () or d.kind != "f":
@@ -349,22 +460,24 @@ def _source(template, sdf, nf=None):
     body = "\n".join(em.lines + ["  return %s;" % d.expr[()]])
     params = ("#define SDF_NPARAMS %d\n#define SDF_PARAMS_IN_ARGS %d\n"
               "#define SDF_NFIELDS %d" % (param_count(sdf),
-                                          params_in_args(sdf), fields.taken))
+                                          params_in_args(sdf), taken))
     point = _build.source("sdf_point.cuh").replace(_BODY_MARK, body).replace(
         _PARAMS_MARK, params)
     return _build.source(template).replace(_POINT_INCLUDE, point)
 
 
-def kernel_source(sdf, nf=None):
-    """The CUDA source of kernel B1 for ``sdf``'s structure; a
-    gather-bearing expression's body reads its ``nf`` field inputs."""
-    return _source("eval_classify.cu", sdf, nf)
+def kernel_source(sdf, nf=None, dtype=None):
+    """The CUDA source of kernel B1 for ``sdf``'s structure, launched in
+    ``dtype`` (None: either); a gather-bearing expression's body reads
+    its ``nf`` field inputs."""
+    return _source("eval_classify.cu", sdf, nf, dtype)
 
 
-def tile_kernel_source(sdf, nf=None):
-    """The CUDA source of kernels B6 and B7 for ``sdf``'s structure; a
-    gather-bearing expression's body reads its ``nf`` field inputs."""
-    return _source("eval_tiles.cu", sdf, nf)
+def tile_kernel_source(sdf, nf=None, dtype=None):
+    """The CUDA source of kernels B6 and B7 for ``sdf``'s structure,
+    launched in ``dtype`` (None: either); a gather-bearing expression's
+    body reads its ``nf`` field inputs."""
+    return _source("eval_tiles.cu", sdf, nf, dtype)
 
 
 def _flat_params(sdf, dtype, device):
@@ -471,7 +584,7 @@ def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
             raise ValueError(
                 "eval_and_classify: a field must be %s of shape %s on %s"
                 % (dtype, tuple(vol.shape), vol.device))
-    lib = _build.load("eval_classify", kernel_source(sdf, len(fields)))
+    lib = _build.load("eval_classify", kernel_source(sdf, len(fields), dtype))
     fn = getattr(lib, "sdf_eval_classify_"
                  + ("f32" if dtype == torch.float32 else "f64"))
     vp, i = ctypes.c_void_p, ctypes.c_int
@@ -699,7 +812,8 @@ def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, live, fields, counter,
         return vols, case
     sms = torch.cuda.get_device_properties(tiles.device).multi_processor_count
     S, blocks, csize, _ = tile_plan(tile, rows, sms, blocks, csize)
-    lib = _build.load("eval_tiles", tile_kernel_source(sdf, len(fields)))
+    lib = _build.load("eval_tiles", tile_kernel_source(sdf, len(fields),
+                                                       dtype))
     fn = getattr(lib, "sdf_eval_tiles_%s%s" % (
         "fields_" if fields else "",
         "f32" if dtype == torch.float32 else "f64"))

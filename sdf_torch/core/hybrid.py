@@ -21,6 +21,14 @@ kernel, the tree is split:
      runs it returns the k-th field tensor.  Both run inside a
      ``kernel_fields`` context that hands out the fields in order.
 
+``route_fields`` marks nodes automatically: each node whose own function
+uses an op that the kernel body has no form for (``eval_classify.NoCppForm``,
+e.g. ``torch.erf`` in a user's ``@sdf3``) becomes a field in the same way,
+as the reference falls back from its kernel to XLA.  ``generate`` applies
+it once, and so do the mesh functions a user may call without it
+(``core.sparse.mesh_sparse_tiles`` and the two of ``parallel``); the tree
+``generate`` hands them passes through.
+
 Fields and placeholder reads pair up by order: both passes run the same
 tree with the same non-gather code, so child calls happen in the same
 sequence.  The pre-passes are plain torch ops outside any kernel:
@@ -35,10 +43,13 @@ points, not only the gather subtrees.
 from __future__ import annotations
 
 import contextvars
+import functools
+import weakref
 
 import torch
 
-from .node import Points, _Node, cast
+from ..utils import checkpoint as ckpt
+from .node import SDF2, Points, _Node, cast
 
 # Side channels of one evaluation: the list that collects recorded fields,
 # and the supplier of field values for placeholder nodes.
@@ -80,11 +91,13 @@ def count_gathers(node):
 
 def _map_nodes(tree, f):
     """Copy of a parameter tree with every directly held SDF node replaced
-    by ``f(node)``; other leaves are shared."""
+    by ``f(node)``, called in ``_child_nodes`` order; other leaves are
+    shared."""
     if isinstance(tree, _Node):
         return f(tree)
     if isinstance(tree, dict):
-        return {key: _map_nodes(v, f) for key, v in tree.items()}
+        done = {key: _map_nodes(tree[key], f) for key in sorted(tree)}
+        return {key: done[key] for key in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_nodes(x, f) for x in tree)
     return tree
@@ -143,6 +156,110 @@ def to_recording_tree(node):
     if needs_gather(node.fn):
         return _rebuilt(node, _rec_wrapper(node.fn), node.params)
     return _rebuilt(node, node.fn, _map_nodes(node.params, to_recording_tree))
+
+
+# One field wrapper per eval function (as _REC_WRAP), so a routed tree has
+# the same structure key and fingerprint every time; and the marks of the
+# route per structure key of the expression.
+_FIELD_WRAP = {}
+_ROUTE_MEMO = {}
+# route_fields' outputs by identity and dtype: (weak reference, ops).
+_ROUTED = {}
+
+
+def _field_wrapper(fn):
+    if fn not in _FIELD_WRAP:
+        if len(_FIELD_WRAP) > 256:
+            _FIELD_WRAP.clear()
+
+        @functools.wraps(fn)
+        def field(q, p, _fn=fn):
+            return _fn(q, p)
+
+        _FIELD_WRAP[fn] = mark_gather(field)
+    return _FIELD_WRAP[fn]
+
+
+def _missing_op(node, dtype):
+    """The op that node's own function cannot record in ``dtype`` (its
+    child nodes standing in as field reads), or None when it records."""
+    from . import eval_classify
+
+    shell = _rebuilt(node, node.fn, _map_nodes(
+        node.params, lambda c: _rebuilt(c, _placeholder_fn, ())))
+    try:
+        eval_classify.record(shell, 2 if isinstance(node, SDF2) else 3,
+                             dtype)
+    except eval_classify.NoCppForm as e:
+        return e.op
+    return None
+
+
+def _route_marks(node, marks, dtype, at=0):
+    """Walk the nodes in preorder from index ``at``: ``marks[i]`` is the
+    missing op of the i-th node marked; a marked or gather node's subtree
+    is not entered.  Returns the next index."""
+    if needs_gather(node.fn):
+        return at + 1
+    op = _missing_op(node, dtype)
+    if op is not None:
+        marks[at] = op
+        return at + 1
+    at += 1
+    for c in _child_nodes(node.params):
+        at = _route_marks(c, marks, dtype, at)
+    return at
+
+
+def _apply_marks(node, marks, at):
+    if needs_gather(node.fn):
+        return node, at + 1
+    if at in marks:
+        return _rebuilt(node, _field_wrapper(node.fn), node.params), at + 1
+    pos = [at + 1]
+
+    def child(c):
+        out, pos[0] = _apply_marks(c, marks, pos[0])
+        return out
+
+    params = _map_nodes(node.params, child)
+    return _rebuilt(node, node.fn, params), pos[0]
+
+
+def route_fields(sdf, stats=None, dtype=None):
+    """``(tree, ops)``: the expression with each node whose own function
+    does not record into the kernel body (``eval_classify.NoCppForm``)
+    marked as a gather, so its subtree becomes a field that kernels B1 and
+    B7 read; ``ops`` names the missing op of each marked node, in preorder.
+    Only the smallest failing subtrees are marked: a node is tried with its
+    child nodes as field reads, in ``dtype``, the one dtype the kernels
+    run in (None: both; a general power has a form in float32 only).  Any
+    other exception of the trial propagates.  An expression that records
+    whole comes back as it is.  The trial is memoized per
+    ``utils.checkpoint.structure_key`` and dtype, and a tree this function
+    returned passes through at once.  With ``stats``
+    (a ``LAST_STATS``-style dict), a route is recorded there as
+    ``field_route_nodes`` and ``field_route_ops``."""
+    if not isinstance(sdf, _Node):
+        return sdf, ()
+    f32 = dtype == torch.float32  # the only dtype whose trial differs
+    hit = _ROUTED.get((id(sdf), f32))
+    if hit is not None and hit[0]() is sdf:
+        tree, ops = sdf, hit[1]
+    else:
+        key = (ckpt.structure_key(sdf), f32)
+        marks = _ROUTE_MEMO.get(key)
+        if marks is None:
+            marks = {}
+            _route_marks(sdf, marks, dtype)
+            ckpt.memo_put(_ROUTE_MEMO, key, marks)
+        ops = tuple(marks[i] for i in sorted(marks))
+        tree = _apply_marks(sdf, marks, 0)[0] if marks else sdf
+        ckpt.memo_put(_ROUTED, (id(tree), f32), (weakref.ref(tree), ops))
+    if ops and stats is not None:
+        stats["field_route_nodes"] = len(ops)
+        stats["field_route_ops"] = ops
+    return tree, ops
 
 
 def record_tile_windows(rec_tree, Xw, Yw, Zw):

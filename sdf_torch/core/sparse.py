@@ -366,9 +366,11 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
     memoization across repeat runs.
 
     Host waits: one for the counts (none on a memo hit), one for the mesh.
-    The active-tile list is made on the host from ``skip``."""
+    The active-tile list is made on the host from ``skip``.  Subtrees the
+    kernels' body cannot hold become fields (``hybrid.route_fields``)."""
     t_entry = time.perf_counter()
     device = torch.device(device)
+    sdf, _ = hybrid.route_fields(sdf, stats, dtype)
     nx, ny, nz = len(X), len(Y), len(Z)
     cshape = (nx - 1, ny - 1, nz - 1)
 

@@ -53,6 +53,9 @@ __device__ __forceinline__ float op_round(float a) { return rintf(a); }
 __device__ __forceinline__ double op_round(double a) { return rint(a); }
 __device__ __forceinline__ float op_fmod(float a, float b) { return fmodf(a, b); }
 __device__ __forceinline__ double op_fmod(double a, double b) { return fmod(a, b); }
+// Any power in float32; in float64 only 2 ** x: there the general pow
+// differs from PyTorch's by an ulp now and then, so other float64 powers
+// are fields (core/eval_classify.py Rec._pow).
 __device__ __forceinline__ float op_pow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double op_pow(double a, double b) { return pow(a, b); }
 __device__ __forceinline__ float op_exp2(float a) { return exp2f(a); }
@@ -60,6 +63,78 @@ __device__ __forceinline__ double op_exp2(double a) { return exp2(a); }
 template <typename T>
 __device__ __forceinline__ T op_sign(T a) {
   return T((T(0) < a) - (a < T(0)));
+}
+
+// The rest of the elementwise functions a user's expression may call, each
+// the CUDA math library's function, as PyTorch's CUDA kernel of the op
+// calls it.
+#define SDF_UNARY_MATH(name, f32, f64)                                    \
+  __device__ __forceinline__ float op_##name(float a) { return f32(a); } \
+  __device__ __forceinline__ double op_##name(double a) { return f64(a); }
+SDF_UNARY_MATH(tanh, tanhf, tanh)
+SDF_UNARY_MATH(exp, expf, exp)
+SDF_UNARY_MATH(expm1, expm1f, expm1)
+SDF_UNARY_MATH(log, logf, log)
+SDF_UNARY_MATH(log1p, log1pf, log1p)
+SDF_UNARY_MATH(log2, log2f, log2)
+SDF_UNARY_MATH(tan, tanf, tan)
+SDF_UNARY_MATH(atan, atanf, atan)
+SDF_UNARY_MATH(asin, asinf, asin)
+SDF_UNARY_MATH(acos, acosf, acos)
+SDF_UNARY_MATH(sinh, sinhf, sinh)
+SDF_UNARY_MATH(cosh, coshf, cosh)
+SDF_UNARY_MATH(floor, floorf, floor)
+SDF_UNARY_MATH(ceil, ceilf, ceil)
+SDF_UNARY_MATH(trunc, truncf, trunc)
+SDF_UNARY_MATH(rsqrt, rsqrtf, rsqrt)
+#undef SDF_UNARY_MATH
+__device__ __forceinline__ float op_hypot(float a, float b) { return hypotf(a, b); }
+__device__ __forceinline__ double op_hypot(double a, double b) { return hypot(a, b); }
+
+// torch.remainder (ATen's remainder_kernel_cuda): fmod, moved to the
+// divisor's sign.
+template <typename T>
+__device__ __forceinline__ T op_remainder(T a, T b) {
+  T mod = op_fmod(a, b);
+  if ((mod != T(0)) && ((b < T(0)) != (mod < T(0)))) mod += b;
+  return mod;
+}
+
+// The rounding of a floor division's quotient (c10::div_floor_floating).
+template <typename T>
+__device__ __forceinline__ T floor_of_quotient(T div, T a_over_b) {
+  if (div == T(0)) return copysign(T(0), a_over_b);
+  T floordiv = floor(div);
+  if (div - floordiv > T(0.5)) floordiv += T(1);
+  return floordiv;
+}
+
+// torch.floor_divide by a tensor: c10::div_floor_floating.
+template <typename T>
+__device__ __forceinline__ T op_floordiv(T a, T b) {
+  if (b == T(0)) return a / b;
+  T mod = op_fmod(a, b);
+  T div = (a - mod) / b;
+  if ((mod != T(0)) && ((b < T(0)) != (mod < T(0)))) div -= T(1);
+  return floor_of_quotient(div, a / b);
+}
+
+// torch.floor_divide by a Python number b != 0 (ATen's div_floor_kernel_cuda
+// with a CPU scalar divisor): the quotient is a product with 1 / b.
+template <typename T>
+__device__ __forceinline__ T op_floordiv_number(T a, T b) {
+  const T inv_b = T(1) / b;
+  T mod = op_fmod(a, b);
+  T div = (a - mod) * inv_b;
+  if ((mod != T(0)) && ((b < T(0)) != (mod < T(0)))) div -= T(1);
+  return floor_of_quotient(div, a * inv_b);
+}
+
+// torch.lerp (ATen's at::native::lerp): two branches on the weight's size,
+// each a multiply-add that PyTorch's build contracts into an FMA.
+template <typename T>
+__device__ __forceinline__ T op_lerp(T a, T b, T w) {
+  return (op_abs(w) < T(0.5)) ? fma(w, b - a, a) : fma(-(b - a), T(1) - w, b);
 }
 
 // The expression's parameters: SDF_NPARAMS values, by value in the kernel

@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from ..core import eval_classify, mc, mc33, node
+from ..core import eval_classify, hybrid, mc, mc33, node
 from ..core.node import resolve_device, upload
 from .multihost import AXIS, all_reduce_host, coords
 from .shards import assemble_indexed
@@ -102,6 +102,7 @@ def mesh_and_march(sdf, X, Y, Z, skip, tile, mesh, dtype, device=None,
     rank-major.  ``mesh`` None runs the whole grid as one slab."""
     rank, ndev, group = coords(mesh)
     device = resolve_device(device)
+    sdf, _ = hybrid.route_fields(sdf, dtype=dtype)
     nx, ny, nz = len(X), len(Y), len(Z)
     ncz = nz - 1
     c = -(-ncz // ndev)  # cells a slab

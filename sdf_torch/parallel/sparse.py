@@ -57,6 +57,7 @@ def mesh_sparse_tiles_sharded(sdf, X, Y, Z, skip, tile, mesh, dtype,
     ``mesh`` None runs the whole list on one device."""
     rank, ndev, group = coords(mesh)
     device = resolve_device(device)
+    sdf, _ = hybrid.route_fields(sdf, dtype=dtype)
     cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
     pt = np.zeros(skip.shape, dtype=np.int64)
 

@@ -45,10 +45,21 @@ def cuda():
 
     exprs = [case[0](sp) for case in th.op_cases().values()]
     exprs += [sp.sphere(0.6).union(sp.box(0.8), k=0.2), _wide_expression()]
+    both = [th.form_model(sp, fn) for fn in th.elementwise_forms().values()]
+    both += [th.blob(sp, op) for op, _ in C4.values()]
+    both += [hybrid.to_kernel_tree(hybrid.route_fields(m())[0])
+             for m in (_erf_model, _where_model)]
+    f32 = [th.form_model(sp, fn) for fn in th.pow_forms().values()]
     _build.build_many(
-        [("eval_classify", eval_classify.kernel_source(f)) for f in exprs]
+        [("eval_classify", eval_classify.kernel_source(f))
+         for f in exprs + both]
+        + [(name, source(f, dtype=torch.float32)) for f in f32
+           for name, source in (
+               ("eval_classify", eval_classify.kernel_source),
+               ("eval_tiles", eval_classify.tile_kernel_source))]
         + [("eval_tiles", eval_classify.tile_kernel_source(f))
-           for f in (th.example(sp), zoo.blobby(), _wide_expression())]
+           for f in [th.example(sp), zoo.blobby(), _wide_expression()]
+           + both]
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
            ("classify_ext", mc33.kernel_source()),
@@ -963,3 +974,161 @@ def test_build_tables_on_the_card_equals_cpu(cuda):
     for key in want:
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key])
+
+
+# --- elementwise forms and the automatic field route ------------------------
+
+
+def _wide_axes(dtype):
+    """Axes of wide-spread values with the special ones (signed zeros,
+    halves, integers; z also infinities and NaN), from a seed."""
+    rng = np.random.default_rng(22)
+    special = [0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -3.0, 0.7, -0.7, 88.0]
+    axes = [np.concatenate([special, rng.standard_normal(n) * 10.0
+                            ** rng.uniform(-3, 2, n)])[:n]
+            for n in (29, 26, 24)]
+    axes[2][-3:] = [np.inf, -np.inf, np.nan]
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return [a.astype(np_dtype).astype(np.float64) for a in axes]
+
+
+@pytest.mark.parametrize("name", sorted(th.elementwise_forms()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_elementwise_form_in_b1_and_b6(cuda, dtype, name):
+    """Each form the recorder emits, through B1 and B6, bit-equal to its
+    plain version on the card (NaN payloads included)."""
+    f = th.form_model(sp, th.elementwise_forms()[name])
+    X, Y, Z = _wide_axes(dtype)
+    vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, dtype, cuda)
+    vp, cp = eval_classify._eval_classify_plain(f, X, Y, Z, dtype, cuda)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
+    tiles = torch.as_tensor(np.ascontiguousarray(
+        np.argwhere(np.ones((4, 4, 3), bool)), np.int32), device=cuda)
+    tk, tck = eval_classify.eval_tiles_and_classify_batched(
+        f, X, Y, Z, tiles, 8, dtype)
+    tp, tcp = eval_classify._plain_tiles(f, X, Y, Z, tiles, 8, dtype, None)
+    assert _same_bits(tk, tp) and torch.equal(tck, tcp)
+
+
+@pytest.mark.parametrize("name", sorted(th.pow_forms()))
+def test_float32_power_in_b1_and_b6(cuda, name):
+    """Each general power, which has a form in a float32 body only, through
+    B1 and B6 in float32, bit-equal to its plain version on the card."""
+    f = th.form_model(sp, th.pow_forms()[name])
+    X, Y, Z = _wide_axes(torch.float32)
+    vk, ck = eval_classify.eval_and_classify(f, X, Y, Z, torch.float32, cuda)
+    vp, cp = eval_classify._eval_classify_plain(f, X, Y, Z, torch.float32,
+                                                cuda)
+    assert _same_bits(vk, vp) and torch.equal(ck, cp)
+    tiles = torch.as_tensor(np.ascontiguousarray(
+        np.argwhere(np.ones((4, 4, 3), bool)), np.int32), device=cuda)
+    tk, tck = eval_classify.eval_tiles_and_classify_batched(
+        f, X, Y, Z, tiles, 8, torch.float32)
+    tp, tcp = eval_classify._plain_tiles(f, X, Y, Z, tiles, 8, torch.float32,
+                                         None)
+    assert _same_bits(tk, tp) and torch.equal(tck, tcp)
+
+
+class _PlainEval:
+    """B1, B6 and B7 replaced by their plain versions on the card."""
+
+    def __init__(self, monkeypatch):
+        ec = eval_classify
+        monkeypatch.setattr(ec, "_launch", lambda sdf, X, Y, Z, dtype, device,
+                            lx=None, fields=(): ec._eval_classify_plain(
+                                sdf, X, Y, Z, dtype, device, fields))
+        monkeypatch.setattr(
+            ec, "_launch_tiles",
+            lambda sdf, X, Y, Z, tiles, tile, dtype, live, fields, counter,
+            blocks=None, csize=None: ec._plain_tiles(
+                sdf, X, Y, Z, tiles, tile, dtype, live, fields=fields,
+                clamp=counter is ec.eval_tiles_and_classify_batched))
+
+
+C4 = {"tanh": (torch.tanh, 1304), "atan": (torch.atan, 1304),
+      "exp(-t)": (lambda t: torch.exp(-t), 1640)}
+C4_KW = dict(samples=2**15, bounds=((-2.0,) * 3, (2.0,) * 3), verbose=False)
+
+
+@pytest.mark.parametrize("name", sorted(C4))
+def test_c4_models_mesh_on_the_card(cuda, monkeypatch, name):
+    """The fault's models at 2**15 on the card: the reference's triangle
+    counts, B1 launched, the soup bit-equal to the plain B1's on the card."""
+    op, tris = C4[name]
+    eval_classify.eval_and_classify.launches = 0
+    got = sp.generate(th.blob(sp, op), **C4_KW)
+    assert len(got) // 3 == tris
+    assert eval_classify.eval_and_classify.launches == 1
+    assert "field_route_ops" not in engine.LAST_STATS
+    engine._COUNTS_MEMO.clear()
+    _PlainEval(monkeypatch)
+    np.testing.assert_array_equal(sp.generate(th.blob(sp, op), **C4_KW), got)
+
+
+def _erf_model():
+    return (th.blob(sp, torch.erf).rotate(0.3, sp.X)
+            | th.blob(sp, torch.tanh, 0.3).translate((0.8, 0, 0)))
+
+
+@pytest.mark.parametrize("sparse, kernel", [
+    (False, eval_classify.eval_and_classify),
+    ("tiles", eval_classify.eval_tiles_and_classify)])
+def test_erf_routes_to_a_field_on_the_card(cuda, monkeypatch, sparse,
+                                           kernel):
+    """An erf node (no form) becomes a field: B1 (dense) or B7 (tiles)
+    launches once reading it, LAST_STATS names erf, and the soup is
+    bit-equal to the plain versions' on the card."""
+    kernel.launches = 0
+    got = sp.generate(_erf_model(), sparse=sparse, **C4_KW)
+    assert kernel.launches == 1 and len(got) > 0
+    assert engine.LAST_STATS["field_route_ops"] == ("erf",)
+    engine._COUNTS_MEMO.clear()
+    _clear_memos()
+    _PlainEval(monkeypatch)
+    np.testing.assert_array_equal(
+        sp.generate(_erf_model(), sparse=sparse, **C4_KW), got)
+
+
+def _where_model():
+    return (th.blob(sp, lambda t: t.where(t > 1, t * 0.5), 0.3)
+            | th.blob(sp, torch.tanh, 0.3).translate((0.8, 0, 0)))
+
+
+@pytest.mark.parametrize("sparse, kernel", [
+    (False, eval_classify.eval_and_classify),
+    ("tiles", eval_classify.eval_tiles_and_classify)])
+def test_where_method_routes_on_the_card(cuda, monkeypatch, sparse, kernel):
+    """``t.where(c, y)`` (``torch.where(c, t, y)``, no form) becomes a
+    field: B1 or B7 once, LAST_STATS names where, and the soup is bit-equal
+    to the plain versions' on the card."""
+    kernel.launches = 0
+    got = sp.generate(_where_model(), sparse=sparse, **C4_KW)
+    assert kernel.launches == 1 and len(got) > 0
+    assert engine.LAST_STATS["field_route_ops"] == ("where",)
+    _clear_memos()
+    _PlainEval(monkeypatch)
+    np.testing.assert_array_equal(
+        sp.generate(_where_model(), sparse=sparse, **C4_KW), got)
+
+
+def test_routed_generate_syncs_twice_then_once(cuda):
+    """The route keeps the memo: a rebuilt erf model's second generate()
+    waits for the card once."""
+    kw = dict(C4_KW, sparse=False)
+    first = sp.generate(_erf_model(), **kw)
+    engine._COUNTS_MEMO.clear()
+    msgs = _count_syncs(lambda: sp.generate(_erf_model(), **kw))
+    assert len(msgs) == 2, msgs
+    out = []
+    msgs = _count_syncs(lambda: out.append(sp.generate(_erf_model(), **kw)))
+    assert len(msgs) == 1, msgs
+    np.testing.assert_array_equal(out[0], first)
+
+
+def test_kernel_wrappers_still_raise_on_a_missing_form(cuda):
+    """The route is the engine's: B1's wrapper on an unrouted erf model
+    raises NoCppForm naming erf, as kernel_source does."""
+    X = np.linspace(-2, 2, 9)
+    with pytest.raises(eval_classify.NoCppForm, match="erf"):
+        eval_classify.eval_and_classify(th.blob(sp, torch.erf), X, X, X,
+                                        torch.float32, cuda)

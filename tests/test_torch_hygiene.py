@@ -64,15 +64,17 @@ def test_import_leaves_jax_out():
 
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "build_mc33_tables_torch.py")]
+             os.path.join(ROOT, "tools", "build_mc33_tables_torch.py"),
+             os.path.join(ROOT, "docs", "render_torch.py"),
+             os.path.join(ROOT, "docs", "render_showcase_torch.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "sdf_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
     return paths
 
 
 def test_sources_name_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or sdf_tpu,
-    even lazily."""
+    """No module of the port, nor chip_smoke.py, its tool or its docs
+    renderers, imports jax or sdf_tpu, even lazily."""
     paths = _port_sources()
     names = {os.path.relpath(p, ROOT) for p in paths}
     assert {"chip_smoke.py", "sdf_torch/core/mc33.py",
@@ -84,7 +86,8 @@ def test_sources_name_no_jax():
             "sdf_torch/models/fit.py", "sdf_torch/parallel/grid.py",
             "sdf_torch/parallel/sparse.py", "sdf_torch/parallel/shards.py",
             "sdf_torch/parallel/multihost.py",
-            "tools/build_mc33_tables_torch.py"} <= names
+            "tools/build_mc33_tables_torch.py", "docs/render_torch.py",
+            "docs/render_showcase_torch.py"} <= names
     for path in paths:
         with open(path) as fp:
             for line in fp:

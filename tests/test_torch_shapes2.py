@@ -166,8 +166,7 @@ def test_star_exports_match_the_reference():
     """The port exports every public name of the JAX package, the slice
     functions included."""
     missing = {n for n in dir(st) if not n.startswith("_")} - set(dir(sp))
-    assert missing <= {"enable_compile_cache",
-                       "engine", "core", "ops", "parallel", "models",
+    assert missing <= {"engine", "core", "ops", "parallel", "models",
                        "io", "utils"}, missing
     assert callable(sp.sample_slice) and callable(sp.show_slice)
     for name in ("SDF2", "circle", "polygon", "extrude", "revolve", "Mesh",

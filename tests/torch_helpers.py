@@ -172,6 +172,73 @@ def soup_hash(pts):
     return hashlib.sha256(tris[np.lexsort(tris.T[::-1])].tobytes()).hexdigest()
 
 
+# --- elementwise forms of the eval body, for the card tests ----------------
+
+
+def elementwise_forms():
+    """name -> fn(x, y, z) applying one form the recorder emits beyond the
+    first twelve ops (chip_smoke.py phase 22 holds the same list)."""
+    import torch
+
+    t = lambda x, y, z: x * y + z
+    u = lambda x, y, z: y - z
+    forms = {name: (lambda x, y, z, f=getattr(torch, name): f(t(x, y, z)))
+             for name in ("tanh", "exp", "expm1", "log", "log1p", "log2",
+                          "tan", "atan", "asin", "acos", "sinh", "cosh",
+                          "floor", "ceil", "trunc", "square", "rsqrt",
+                          "reciprocal", "exp2")}
+    forms.update({name: (lambda x, y, z, f=getattr(torch, name):
+                         f(t(x, y, z), u(x, y, z)))
+                  for name in ("hypot", "remainder", "floor_divide")})
+    forms.update({
+        "lerp": lambda x, y, z: torch.lerp(x, y, z),
+        "lerp(w=0.7)": lambda x, y, z: torch.lerp(x, y, 0.7),
+        "t % 0.7": lambda x, y, z: t(x, y, z) % 0.7,
+        "3 % t": lambda x, y, z: 3.0 % t(x, y, z),
+        "t // 0.7": lambda x, y, z: t(x, y, z) // 0.7,
+        "t // 0": lambda x, y, z: t(x, y, z) // 0.0,
+        "3 // t": lambda x, y, z: 3.0 // t(x, y, z),
+        "2 ** t": lambda x, y, z: 2.0 ** t(x, y, z),
+        "t ** -0.5": lambda x, y, z: t(x, y, z) ** -0.5,
+        "t ** 0": lambda x, y, z: t(x, y, z) ** 0,
+    })
+    return forms
+
+
+def pow_forms():
+    """name -> fn(x, y, z): the general powers, which have a form in a
+    float32 body only (chip_smoke.py phase 22 holds the same list)."""
+    import torch
+
+    t = lambda x, y, z: x * y + z
+    u = lambda x, y, z: y - z
+    return {"t ** 1.5": lambda x, y, z: t(x, y, z) ** 1.5,
+            "t ** 4": lambda x, y, z: t(x, y, z) ** 4,
+            "t ** -3": lambda x, y, z: t(x, y, z) ** -3,
+            "pow(t, u)": lambda x, y, z: torch.pow(t(x, y, z), u(x, y, z)),
+            "3 ** t": lambda x, y, z: 3.0 ** t(x, y, z),
+            "t.pow(0.25)": lambda x, y, z: t(x, y, z).pow(0.25)}
+
+
+def form_model(m, fn):
+    """A node of package ``m`` whose own function is ``fn(x, y, z)``."""
+    return m.SDF3(lambda q, p, fn=fn: fn(*p), {})
+
+
+def blob(m, op, k=0.5):
+    """``op(x*x + y*y + z*z) - k`` as an @sdf3 builder's node of ``m``."""
+
+    @m.sdf3
+    def build(k=k):
+        def fn(q, p):
+            x, y, z = p
+            return op(x * x + y * y + z * z) - q["k"]
+
+        return fn, {"k": np.float64(k)}
+
+    return build()
+
+
 # --- a numpy interpreter for the generated CUDA eval body -------------------
 
 _TERNARY = re.compile(r"\((\S+) \? (\S+) : (\S+)\)")
@@ -198,6 +265,29 @@ class _Fields:
         self.p = p
 
 
+def _remainder(a, b):
+    m = np.fmod(a, b)
+    return np.where((m != 0) & ((b < 0) != (m < 0)), m + b, m)
+
+
+def _floor_of_quotient(div, a_over_b):
+    fl = np.floor(div)
+    fl = np.where(div - fl > 0.5, fl + 1, fl)
+    return np.where(div == 0, np.copysign(0 * div, a_over_b), fl)
+
+
+def _floordiv(a, b, inv=False):
+    m = np.fmod(a, b)
+    div = (a - m) * (1 / b) if inv else (a - m) / b
+    div = np.where((m != 0) & ((b < 0) != (m < 0)), div - 1, div)
+    q = a * (1 / b) if inv else a / b
+    return np.where(b == 0, a / b, _floor_of_quotient(div, q))
+
+
+def _lerp(a, b, w):
+    return np.where(np.abs(w) < 0.5, a + w * (b - a), b - (b - a) * (1 - w))
+
+
 def run_body(src, x, y, z, P, fields=()):
     """Evaluate the ``sdf_point`` body of a generated kernel source with
     numpy, elementwise and in IEEE arithmetic, on broadcastable coordinate
@@ -218,6 +308,15 @@ def run_body(src, x, y, z, P, fields=()):
         "op_abs": np.abs, "op_cos": np.cos, "op_sin": np.sin,
         "op_atan2": np.arctan2, "op_round": np.rint, "op_fmod": np.fmod,
         "op_pow": np.power, "op_exp2": np.exp2, "op_sign": np.sign,
+        "op_tanh": np.tanh, "op_exp": np.exp, "op_expm1": np.expm1,
+        "op_log": np.log, "op_log1p": np.log1p, "op_log2": np.log2,
+        "op_tan": np.tan, "op_atan": np.arctan, "op_asin": np.arcsin,
+        "op_acos": np.arccos, "op_sinh": np.sinh, "op_cosh": np.cosh,
+        "op_floor": np.floor, "op_ceil": np.ceil, "op_trunc": np.trunc,
+        "op_rsqrt": lambda a: 1 / np.sqrt(a), "op_hypot": np.hypot,
+        "op_remainder": _remainder, "op_floordiv": _floordiv,
+        "op_floordiv_number": lambda a, b: _floordiv(a, b, inv=True),
+        "op_lerp": _lerp,
     }
     with np.errstate(all="ignore"):
         for line in body.strip().splitlines():
