@@ -128,6 +128,20 @@ Phases, each printing its own lines:
      body in float32 and a field in float64, timed against B1 with op_pow
      in its float64 body; and enable_compile_cache: B1 built once in a
      temporary directory, then the default restored.
+ 23. the measurement layer: the probe kernels (csrc/probes.cu: the mul-add
+     chain, the sqrt chain, the copy) bit-equal to their plain versions on
+     the example's 2**22 axes and, the copy, on a seeded 1 GiB buffer and a
+     misaligned view of it; utils.weather.probe_rates on the card beside
+     the card line, each rate under 105% of the data sheet's (3.35 TB/s
+     for the copy, 67 TFLOP/s for the mul-add); tools/roofline_torch.py
+     at 2**26 (its JSON line), beside B1's kernel time on that grid; tools/profile_emit_torch.py at 2**22 (every sub-phase timed, B4
+     and B5 launched, a sub-phase that waits for the host named); and
+     engine.PROFILE with sparse.PROFILE on the example at 2**22 and on
+     knurling at 2**26, both at the defaults: device, d2h, d2h_bytes and
+     decode (warm, best of two), the soup bit-equal to the run without
+     PROFILE, d2h_bytes the mesh arrays' bytes, and exactly one more host
+     wait on the dense path.  Phase 23 times its kernels with CUDA events
+     behind queued L2 flushes (``event_ms``), not torch.profiler.
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -150,10 +164,13 @@ int32 offsets 1 to 3; for B4 the share of its time that the memset of
 its look-back scratch takes.
 Then one JSON line with every kernel (B2's, B3's and B4's entries also
 carry ``diffmesh_launches``, their launches in phase 16's float32 lewiner
-extract; every entry carries ``sharded_launches``, its launches on rank 0
-in phase 20's full-width runs; L1's entry, at n=64 and B=9, carries its
-other shapes, scipy's host ms in place of a library call, the build's
-wall and the realizations labelled per n), the card line again, and last
+extract; the entries of B1-B7 carry ``sharded_launches``, their launches
+on rank 0 in phase 20's full-width runs; L1's entry, at n=64 and B=9,
+carries its other shapes, scipy's host ms in place of a library call, the
+build's wall and the realizations labelled per n; the three probes'
+entries, at the shapes of phase 23's roofline run, carry that ``shape``,
+their launches in that run, and for the copy ``torch.add``'s time as the
+library call), the card line again, and last
 the result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
@@ -179,6 +196,9 @@ default plan's.
 
 ``python3 chip_smoke.py --elementwise`` builds phase 22's libraries and runs
 phase 22 alone.
+
+``python3 chip_smoke.py --measure`` builds phase 23's libraries, runs
+phase 23 alone and prints the probes' entries of the kernels line.
 
 ``python3 chip_smoke.py --diffmesh`` builds kernels B2, B3 and B4 and runs
 phases 16 to 19 alone (a few minutes shorter than the whole script).
@@ -469,7 +489,11 @@ def device_ms(fn, reps=20, warm=3, match=None):
     """Device time per call of ``fn`` in ms, each call after an L2 flush:
     the summed durations of the kernels (and memsets) it launches, from
     torch.profiler, so host work between launches is not counted; with
-    ``match``, of those whose name holds it only.  The profiler on the
+    ``match``, of those whose name holds it only.  Phases 1-22 time with
+    it: their wrappers launch several kernels with host work between them
+    (a pre-pass, a memset, a plan), which a span of CUDA events
+    (``event_ms``) would count, and ``match`` picks one kernel of a call.
+    The profiler on the
     card sometimes drops events: a profile with none, or with a kernel
     that is not a whole number of times per call, is taken again (up to
     four profiles, each with a note; the last one that recorded any is
@@ -510,6 +534,36 @@ def device_ms(fn, reps=20, warm=3, match=None):
         per.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return sum(statistics.fmean(d) * max(1, round(len(d) / reps))
                for d in per.values()) / 1e3
+
+
+def event_ms(fn, reps=10, warm=2, lead=16):
+    """Device ms per call of ``fn`` by CUDA events, each call after an L2
+    flush: ``lead`` flushes queued ahead of the start event keep the card
+    busy while the host prepares the call, so the events span the call's
+    device work (every kernel, copy and memset of it, and any host gap
+    longer than the queued flushes).  Phase 23 times with it: it runs
+    last, and there, late in a long process, torch.profiler has dropped
+    every event of a timed call in four profiles.  It times the probe
+    kernels there (one launch a call), their plain versions and
+    ``torch.add`` (device-bound chains of torch ops) and, labelled as a
+    call's device span, B1's call; the kernels line marks its entries with
+    ``"timing": "events"``."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        for _ in range(lead):
+            _flush_l2()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.fmean(times)
 
 
 def max_abs_diff(pairs):
@@ -2585,6 +2639,327 @@ def elementwise_phase(dev, kernels):
           % _build.DEFAULT_BUILD)
 
 
+# -- phase 23: the measurement layer -------------------------------------------
+
+# The probes' replaced XLA fusions and the PROFILE cells: the example model
+# at 2**22 and knurling at 2**26 (the JAX bench's decomposition cell,
+# bench.py:310-345), both at generate()'s defaults.
+PROBE_FUSIONS = {
+    "probe_muladd": "sdf_tpu/utils/weather.py:96-102 (XLA fusion `muladd`)",
+    "probe_sqrts": "sdf_tpu/utils/weather.py:107-113 (XLA fusion `sqrts`)",
+    "probe_copy": "sdf_tpu/utils/weather.py:122 (XLA fusion `v + 1.0`)",
+}
+PROFILE_CELLS = (("example 2^22", 2**22), ("knurling 2^26", 2**26))
+
+
+def load_tool(name):
+    """A module of tools/ of this checkout, by file name."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def count_waits(fn):
+    """``(fn(), host waits)``: the waits PyTorch's sync debug mode reports
+    (transfers) plus the explicit ``torch.cuda.synchronize`` calls it does
+    not report."""
+    import torch
+
+    torch.cuda.synchronize()
+    real = torch.cuda.synchronize
+    explicit = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*a, **k):
+            n0 = len(caught)
+            out = real(*a, **k)
+            if not any("called a synchronizing" in str(w.message)
+                       for w in caught[n0:]):
+                explicit.append(1)
+            return out
+
+        torch.cuda.synchronize = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize = real
+    waits = sum("called a synchronizing" in str(w.message) for w in caught)
+    return out, waits + len(explicit)
+
+
+def mesh_wire_bytes(verts, faces, dtype):
+    """The bytes of the dense path's mesh transfer for a mesh of
+    ``len(verts)`` unique vertices and ``len(faces)`` triangles: packed
+    float32 (2 words a vertex; 2 face words, or 3 int32 ranks past 2**21
+    vertices), else float64 vertices and int32 faces."""
+    from sdf_torch.core import mc
+
+    ne, n = len(verts), len(faces)
+    if dtype == "float32":
+        return 8 * ne + (8 if ne < (1 << mc.FACE_PACK_BITS) else 12) * n
+    return 24 * ne + 12 * n
+
+
+def measure_sources(sp, zoo, _build, eval_classify, mc33):
+    """Phase 23's libraries: the probes and every kernel of the example's
+    and knurling's default runs."""
+    return [("probes", _build.source("probes.cu")),
+            ("eval_classify", eval_classify.kernel_source(example(sp))),
+            ("eval_classify", eval_classify.kernel_source(zoo.knurling())),
+            ("eval_tiles", eval_classify.tile_kernel_source(zoo.knurling())),
+            ("ntri", _build.source("ntri.cu")),
+            ("compact", _build.source("compact.cu")),
+            ("classify_ext", mc33.kernel_source())]
+
+
+def measurement_phase(dev, kernels):
+    """Phase 23: the probe kernels against their plain versions, the
+    session probe rates, tools/roofline_torch.py at 2**26 and
+    tools/profile_emit_torch.py at 2**22 on the card, and engine.PROFILE
+    with sparse.PROFILE on the example at 2**22 and knurling at 2**26.
+    Adds the probes' entries to ``kernels``."""
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch.core import compact, engine, eval_classify, node, sparse
+    from sdf_torch.models import zoo
+    from sdf_torch.utils import weather
+
+    print("== phase 23: measurement: the probe kernels, probe_rates, "
+          "roofline_torch at 2**26, profile_emit_torch at 2**22, "
+          "engine.PROFILE", flush=True)
+    card = card_line()
+    f = example(sp)
+    f32 = torch.float32
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    # (a) each probe kernel bit-equal to its plain version on the card, on
+    # the example's 2**22 axes (the mul-add and the sqrt again at the
+    # roofline run's 2**26 axes, their main path, in (c))
+    X, Y, Z = grid_axes(f, 2**22, f32)
+    axes = node.upload([X, Y, Z], f32, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    big = torch.randn(weather.COPY_SHAPE, generator=gen, device=dev)
+    pairs = {
+        "probe_muladd": [(weather.muladd(*axes),
+                          weather._muladd_plain(*axes))],
+        "probe_sqrts": [(weather.sqrts(*axes), weather._sqrts_plain(*axes))],
+        "probe_copy": [(weather.copy(v), weather._copy_plain(v))
+                       for v in (big, big.reshape(-1)[1:],
+                                 torch.ones(weather.FLOOR_SHAPE, device=dev))],
+    }
+    torch.cuda.synchronize()
+    err = {}
+    for name, got in pairs.items():
+        check(all(same_bits(a, b) for a, b in got),
+              "%s bit-equal to its plain version on the card (%s)"
+              % (name, ", ".join(str(tuple(a.shape)) for a, _ in got)))
+        err[name] = max_abs_diff(got)
+        print("  %s max_abs_err %g" % (name, err[name]))
+    del pairs
+
+    # (b) the session rates on the example's 2**22 axes, each under 105% of
+    # what the card can do: the data sheet's 3.35 TB/s for the copy; for
+    # the mul-add, built with -fmad=false, the FMUL+FADD issue limit (two
+    # instructions and two flops a step, so flops/s = issue_rate(), half
+    # the 67 TFLOP/s FMA peak).  A rate whose call took under
+    # weather.FLOOR_MARGIN dispatch floors is no measurement: it is
+    # printed as such and not held to a limit.
+    peak = {"copy_gbs": 1.05 * HBM_BYTES_PER_S / 1e9,
+            "muladd_gflops": 1.05 * issue_rate() / 1e9}
+    rates = weather.probe_rates(X, Y, Z, device=dev)
+    n22 = len(X) * len(Y) * len(Z)
+    print("  probe_rates at 2**22 (%s): %s" % (card, json.dumps(rates)),
+          flush=True)
+
+    def under_peaks(r, n, where):
+        """Holds the measured rates of ``r`` (on ``n`` points) under
+        ``peak``; returns the floor-bound ones."""
+        fb = weather.floor_bound(r, n)
+        for k in fb:
+            print("  %s: %s %.1f is no measurement: its call took under %d "
+                  "dispatch floors of %.4f ms" % (
+                      where, k, r[k], weather.FLOOR_MARGIN,
+                      r["dispatch_floor_ms"]))
+        held = [k for k in peak if k not in fb]
+        check(min(r.values()) > 0 and all(r[k] < peak[k] for k in held),
+              "%s: %s under %s (105%% of 3,350 GB/s; of the FMUL+FADD "
+              "issue limit)" % (where, ", ".join(
+                  "%s %.1f" % (k, r[k]) for k in held) or "no rate",
+                                ", ".join("%.1f" % peak[k] for k in held)))
+        return fb
+
+    under_peaks(rates, n22, "probe_rates at 2**22")
+
+    # (c) the roofline of B1 at 2**26: the probes' main path, their counts
+    # set to 0 just before
+    for w in (weather.muladd, weather.sqrts, weather.copy):
+        w.launches = 0
+    roof = load_tool("roofline_torch").main(26, dev)
+    launches = {"probe_muladd": weather.muladd.launches,
+                "probe_sqrts": weather.sqrts.launches,
+                "probe_copy": weather.copy.launches}
+    print("  the roofline run's probe launches: %s" % launches)
+    check(all(n > 0 for n in launches.values()),
+          "every probe kernel launched in roofline_torch.main(26)")
+    fb = under_peaks({"dispatch_floor_ms": roof["dispatch_floor_ms"],
+                      "copy_gbs": roof["probe_copy_gbs"],
+                      "muladd_gflops": roof["probe_muladd_gflops"],
+                      "sqrt_gops": roof["probe_sqrt_gops"]},
+                     roof["n_points"], "roofline_torch.main(26)'s probes")
+    check(not fb, "roofline_torch.main(26)'s probe calls each took at least "
+          "%d dispatch floors" % weather.FLOOR_MARGIN)
+    R = grid_axes(f, 2**26, f32)
+    n26 = int(np.prod([len(a) for a in R]))
+    b1_ms = event_ms(lambda: eval_classify.eval_and_classify(f, *R, f32,
+                                                             dev))
+    print("  B1 at 2**26 %s: a call's device span %.4f ms (CUDA events: "
+          "the axes' upload, the outputs' allocation and the kernel), "
+          "%.1f GFLOP/s, %.4f of the session's mul-add rate; the "
+          "roofline's call %.4f ms (host wall)"
+          % (tuple(len(a) for a in R), b1_ms,
+             weather.EXAMPLE_FLOPS_PER_POINT * n26 / b1_ms / 1e6,
+             weather.EXAMPLE_FLOPS_PER_POINT * n26 / b1_ms / 1e6
+             / roof["probe_muladd_gflops"], roof["eval_ms"]))
+
+    # the mul-add and the sqrt bit-equal to their plain versions at the
+    # roofline run's shape, where they launched (the entries' max_abs_err)
+    rax = node.upload(R, f32, dev)
+    for name, kern, plain in (
+            ("probe_muladd", weather.muladd, weather._muladd_plain),
+            ("probe_sqrts", weather.sqrts, weather._sqrts_plain)):
+        got = [(kern(*rax), plain(*rax))]
+        check(same_bits(*got[0]), "%s bit-equal to its plain version on the "
+              "card at the roofline run's %s" % (name, tuple(got[0][0].shape)))
+        err[name] = max_abs_diff(got)
+        print("  %s max_abs_err %g at %s" % (name, err[name],
+                                             tuple(got[0][0].shape)))
+        del got
+
+    # the probes' entries, at the roofline run's shapes
+    bigc = torch.ones(weather.COPY_SHAPE, device=dev)
+    nb = bigc.numel()
+    timed = {
+        "probe_muladd": (lambda: weather.muladd(*rax),
+                         lambda: weather._muladd_plain(*rax), None,
+                         4 * (sum(len(a) for a in R) + n26), 130 * n26),
+        "probe_sqrts": (lambda: weather.sqrts(*rax),
+                        lambda: weather._sqrts_plain(*rax), None,
+                        4 * (sum(len(a) for a in R) + n26), 68 * n26),
+        "probe_copy": (lambda: weather.copy(bigc),
+                       lambda: weather._copy_plain(bigc),
+                       lambda: torch.add(bigc, 1.0), 8 * nb, nb),
+    }
+    for name, (kern, plain, lib, nbytes, ops) in timed.items():
+        ms = event_ms(kern)
+        pms = event_ms(plain, reps=3, warm=1)
+        lms = event_ms(lib) if lib else None
+        b, by = bound_ms(nbytes, ops)
+        print("  %s: ms %.4f plain_ms %.4f bound_ms %.4f (%s)%s" % (
+            name, ms, pms, b, by,
+            "" if lms is None else " library_ms %.4f (torch.add)" % lms))
+        kernels[name] = dict(
+            name=name, route="cuda", source="sdf_torch/csrc/probes.cu",
+            replaces=PROBE_FUSIONS[name], launches=launches[name],
+            max_abs_err=err[name], ms=ms, plain_ms=pms, bound_ms=b,
+            bound_by=by, library_ms=lms, timing="events",
+            shape=list(bigc.shape) if name == "probe_copy"
+            else [len(a) for a in R])
+    del bigc, rax, big
+    torch.cuda.empty_cache()
+
+    # (d) the emit's sub-phases at 2**22; B4 and B5 counted from 0
+    compact.indices_of.launches = 0
+    compact.indices_and_ranktable_of.launches = 0
+    rows = load_tool("profile_emit_torch").main(22, dev)
+    b4, b5 = (compact.indices_of.launches,
+              compact.indices_and_ranktable_of.launches)
+    check(len(rows) == 11 and all(np.isfinite(r[2]) and r[2] > 0
+                                  for r in rows),
+          "profile_emit_torch.main(22): all 11 sub-phases timed")
+    check(b4 > 0 and b5 > 0, "B4 launched %d times and B5 %d times there"
+          % (b4, b5))
+    print("  sub-phases that wait for the host: %s" % (
+        [r[0] for r in rows if r[3]] or "none"))
+
+    # (e) engine.PROFILE and sparse.PROFILE together, warm, best of two
+    tris = {}
+    for label, samples in PROFILE_CELLS:
+        make = (lambda: example(sp)) if label.startswith("example") \
+            else zoo.knurling
+        kw = dict(samples=samples, verbose=False)
+        sp.generate(make(), **kw)  # cold: bounds, counts, kernels
+        off, waits_off = count_waits(lambda: sp.generate(make(), **kw))
+        routed = "auto_tiles" in engine.LAST_STATS
+        engine.PROFILE = sparse.PROFILE = True
+        try:
+            best = None
+            for _ in range(2):
+                (v, fc), waits_on = count_waits(
+                    lambda: sp.generate(make(), output="mesh", **kw))
+                st = dict(engine.LAST_STATS)
+                if best is None or st["total"] < best[0]["total"]:
+                    best = (st, v, fc)
+        finally:
+            engine.PROFILE = sparse.PROFILE = False
+        st, v, fc = best
+        keys = (("tiles_device", "tiles_d2h", "tiles_d2h_bytes",
+                 "tiles_decode") if routed
+                else ("device", "d2h", "d2h_bytes", "decode"))
+        print("  %s PROFILE (%s, %.4f of the batches culled; warm, best of "
+              "two; %s): %s, total %.4f s, %d triangles"
+              % (label, "routed" if routed else "dense",
+                 st["skipped"] / st["batches"], card,
+                 {k: st.get(k) for k in keys}, st["total"], len(fc)),
+              flush=True)
+        check(np.array_equal(v[fc.reshape(-1)], off),
+              "%s: the soup with PROFILE on is bit-equal to the run with it "
+              "off" % label)
+        want = mesh_wire_bytes(v, fc, "float32")
+        check(st.get(keys[2]) == want, "%s: %s %s equals the fetched mesh "
+              "arrays' %d bytes" % (label, keys[2], st.get(keys[2]), want))
+        check(routed or waits_on == waits_off + 1,
+              "%s: the dense path waits %d times with PROFILE on, %d with it "
+              "off" % (label, waits_on, waits_off))
+        tris[label] = len(fc)
+        del off, v, fc
+
+    # The cells' meshes against more than themselves: the example's pinned
+    # count; knurling's B1 output bit-equal to its plain version on its
+    # 2**26 grid, and its count against device="cpu" there within phase
+    # 22's max(8, 1e-3 x) (knurling's twist and circular_array take sin,
+    # cos and atan2, which differ between the CPU's SLEEF and the card's
+    # library by an ulp now and then).
+    check(tris["example 2^22"] == TRIS_2P22, "example 2^22: %d triangles, "
+          "the pinned %d" % (tris["example 2^22"], TRIS_2P22))
+    kn = zoo.knurling()
+    K = grid_axes(kn, 2**26, f32)
+    vk, ck = eval_classify.eval_and_classify(kn, *K, f32, dev)
+    vp, cp = eval_classify._eval_classify_plain(kn, *K, f32, dev)
+    check(same_bits(vk, vp) and torch.equal(ck, cp),
+          "B1 on knurling's 2^26 grid %s: vol and case bit-equal to plain"
+          % (tuple(vk.shape),))
+    del vk, ck, vp, cp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m = len(sp.generate(zoo.knurling(), samples=2**26, verbose=False,
+                        device="cpu")) // 3
+    n = tris["knurling 2^26"]
+    check(abs(n - m) <= max(C4_COUNT_ATOL, C4_COUNT_RTOL * m),
+          "knurling 2^26: %d triangles on the card, %d with device='cpu' "
+          "(%.1f s), within max(%d, %g x)" % (
+              n, m, time.perf_counter() - t0, C4_COUNT_ATOL, C4_COUNT_RTOL))
+
+
 def main():
     import numpy as np
     import torch
@@ -2626,6 +3001,17 @@ def main():
         print("built %d libraries in %.1f s" % (len(set(libs)),
                                                 time.time() - t0))
         elementwise_phase(dev, {})
+        print(card_line())
+        return 0
+    if "--measure" in sys.argv[1:]:
+        t0 = time.time()
+        libs = _build.build_many(measure_sources(sp, zoo, _build,
+                                                 eval_classify, mc33))
+        print("built %d libraries in %.1f s" % (len(set(libs)),
+                                                time.time() - t0))
+        kernels = {}
+        measurement_phase(dev, kernels)
+        print(json.dumps({"kernels": [kernels[k] for k in PROBE_FUSIONS]}))
         print(card_line())
         return 0
     if "--diffmesh" in sys.argv[1:]:
@@ -2680,7 +3066,8 @@ def main():
         ("compact", _build.source("compact.cu")),
         ("classify_ext", mc33.kernel_source()),
         ("label3d", _build.source("label3d.cu")),
-    ] + elementwise_sources(sp, eval_classify, hybrid))
+    ] + elementwise_sources(sp, eval_classify, hybrid)
+      + measure_sources(sp, zoo, _build, eval_classify, mc33))
     print("built %d libraries in %.1f s: %s" % (
         len(set(libs)), time.time() - t0,
         ", ".join(sorted({p.name for p in libs}))))
@@ -3891,17 +4278,19 @@ def main():
     sharded_phase(dev, kernels)
     table_builder_phase(dev, kernels)
     elementwise_phase(dev, kernels)
+    measurement_phase(dev, kernels)
 
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
-                          "eval_classify_fields", "label3d"]
+                          "eval_classify_fields", "label3d"] + list(
+                              PROBE_FUSIONS)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["sharded_launches", "diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
             "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
             "kernel_only_ms_all_rows", "workspace_bound_ms", "scipy_host_ms",
             "shapes",
-            "build_wall_s", "build_busy_ms", "oracle_calls"]
+            "build_wall_s", "build_busy_ms", "oracle_calls", "shape"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

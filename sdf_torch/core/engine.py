@@ -73,6 +73,15 @@ _EMPTY = np.empty(0)
 # seconds plus batch/triangle counters (the JAX package's keys).
 LAST_STATS = {}
 
+# When True, the dense generate() path fences device completion before
+# its d2h phase and records ``stats["device"]`` (wall time from the
+# first eval dispatch to the fence) and ``stats["d2h_bytes"]`` (the
+# fetched mesh arrays) -- one extra host wait per run, off by default.
+# Together with core.sparse.PROFILE for the tiles route it splits a warm
+# e2e into device / transfer / host decode, so a slow transfer cannot
+# masquerade as a device regression.
+PROFILE = False
+
 _MC_VARIANT_ALIASES = {"fast": "default"}
 
 
@@ -326,6 +335,7 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
     else:
         skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
 
+    t_dev0 = time.perf_counter()  # device-pipeline start (PROFILE)
     fields = None
     if hybrid.count_gathers(sdf):
         # Kernel B1's pre-pass: the gather-bearing subtrees' fields over the
@@ -413,12 +423,20 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
                 vol, case, active, emask, edge_capacity, capacity,
                 cell_capacity, packed=packed, variant=mc_variant,
             )
+        if PROFILE:
+            # Fence device completion so the d2h phase below measures the
+            # transfer, not residual device work.
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            stats["device"] = round(time.perf_counter() - t_dev0, 4)
         with _phase("d2h", stats):
             # One transfer: the mesh and, on a memoized run, the statistics.
             got = node.fetch([everts[:, :ne], faces[:, :n]] + pending)
             eh, fh = got[:2]
             if pending:
                 per_tile, skip = got[2:]
+            if PROFILE:  # the mesh arrays, not the pending statistics
+                stats["d2h_bytes"] = int(eh.nbytes + fh.nbytes)
             if packed is not False:  # int32 bit patterns of uint32 words
                 eh, fh = eh.view(np.uint32), fh.view(np.uint32)
         with _phase("decode", stats):

@@ -122,6 +122,18 @@ class Points:
         return functools.reduce(lambda a, b: a + b, self.c)
 
 
+def pointwise(fn):
+    """Lift a torch elementwise function over Points (or pass tensors
+    through)."""
+
+    def apply(x, *args, **kwargs):
+        if isinstance(x, Points):
+            return Points(*[fn(c, *args, **kwargs) for c in x.c])
+        return fn(x, *args, **kwargs)
+
+    return apply
+
+
 def as_param(value, dtype=np.float64):
     """A user-supplied numeric parameter as a float64 numpy leaf; ``cast``
     turns leaves into tensors of the compute dtype."""

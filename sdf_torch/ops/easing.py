@@ -148,3 +148,32 @@ def out_square(t):
 def in_out_square(t):
     t = _t(t)
     return torch.where(t < 0.5, torch.zeros_like(t), torch.ones_like(t))
+
+
+def _main():
+    """Plot every easing curve (debug affordance, ref sdf/ease.py:164-185)."""
+    import matplotlib.pyplot as plt
+
+    fs = [
+        linear,
+        in_quad, out_quad, in_out_quad,
+        in_cubic, out_cubic, in_out_cubic,
+        in_quart, out_quart, in_out_quart,
+        in_quint, out_quint, in_out_quint,
+        in_sine, out_sine, in_out_sine,
+        in_expo, out_expo, in_out_expo,
+        in_circ, out_circ, in_out_circ,
+        in_elastic, out_elastic, in_out_elastic,
+        in_back, out_back, in_out_back,
+        in_bounce, out_bounce, in_out_bounce,
+        in_square, out_square, in_out_square,
+    ]
+    x = np.linspace(0, 1, 1000)
+    for f in fs:
+        plt.plot(x, np.asarray(f(x)), label=f.__name__)
+    plt.legend()
+    plt.show()
+
+
+if __name__ == "__main__":
+    _main()

@@ -63,7 +63,8 @@ def cuda():
         + [("ntri", _build.source("ntri.cu")),
            ("compact", _build.source("compact.cu")),
            ("classify_ext", mc33.kernel_source()),
-           ("label3d", _build.source("label3d.cu"))]
+           ("label3d", _build.source("label3d.cu")),
+           ("probes", _build.source("probes.cu"))]
     )
     return torch.device("cuda")
 
@@ -1132,3 +1133,44 @@ def test_kernel_wrappers_still_raise_on_a_missing_form(cuda):
     with pytest.raises(eval_classify.NoCppForm, match="erf"):
         eval_classify.eval_and_classify(th.blob(sp, torch.erf), X, X, X,
                                         torch.float32, cuda)
+
+
+@pytest.mark.parametrize("n", [(7, 6, 5), (162, 162, 162), (407, 407, 407)])
+def test_probe_kernels_equal_plain(cuda, n):
+    """The session probes' kernels (csrc/probes.cu) bit-equal to their
+    plain versions on seeded axes: a tiny grid, the example's 2**22 grid
+    and the 2**26 grid of tools/roofline_torch.py, where phase 23 launches
+    them; the copy also on a misaligned view (its one-value-a-thread
+    path)."""
+    from sdf_torch.utils import weather
+
+    rng = np.random.default_rng(sum(n))
+    ax = [torch.as_tensor(rng.uniform(-2, 2, k), dtype=torch.float32,
+                          device=cuda) for k in n]
+    for kern, plain in ((weather.muladd, weather._muladd_plain),
+                        (weather.sqrts, weather._sqrts_plain)):
+        assert _same_bits(kern(*ax), plain(*ax))
+    v = torch.as_tensor(rng.normal(size=4099), dtype=torch.float32,
+                        device=cuda)
+    for w in (v, v[1:], v[:7]):
+        assert _same_bits(weather.copy(w), weather._copy_plain(w))
+
+
+def test_profile_adds_one_wait_and_changes_no_soup(cuda, monkeypatch):
+    """engine.PROFILE fences the dense path once more (an explicit
+    torch.cuda.synchronize, which the sync debug mode does not report), and
+    the soup stays bit-equal."""
+    kw = dict(samples=2**15, verbose=False)
+    off = th.example(sp).generate(**kw)
+    msgs = _count_syncs(lambda: th.example(sp).generate(**kw))
+    fences = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: fences.append(a) or real(*a))
+    monkeypatch.setattr(engine, "PROFILE", True)
+    out = []
+    msgs_on = _count_syncs(lambda: out.append(th.example(sp).generate(**kw)))
+    # the fences: _count_syncs' own, then the engine's one
+    assert len(msgs_on) == len(msgs) == 1 and len(fences) == 2
+    np.testing.assert_array_equal(out[0], off)
+    assert engine.LAST_STATS["d2h_bytes"] > 0 and engine.LAST_STATS["device"]

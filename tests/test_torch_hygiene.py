@@ -21,6 +21,7 @@ KERNEL_MODULES = [
     "sdf_torch.core.compact",
     "sdf_torch.core.engine",
     "sdf_torch.utils.checkpoint",
+    "sdf_torch.utils.weather",
     "sdf_torch.io.meshfmt",
     "sdf_torch.models.zoo",
     "sdf_torch.core.node",
@@ -44,6 +45,7 @@ def test_import_leaves_jax_out():
         "import sdf_torch.core.engine, sdf_torch.core.eval_classify\n"
         "import sdf_torch.core.mc33, sdf_torch.core.mc33_build\n"
         "import sdf_torch.utils.checkpoint, sdf_torch.io.meshfmt\n"
+        "import sdf_torch.utils.weather\n"
         "import sdf_torch.models.zoo\n"
         "import sdf_torch.core.sparse, sdf_torch.core.hybrid\n"
         "import sdf_torch.ops.shapes2, sdf_torch.ops.textures\n"
@@ -65,6 +67,8 @@ def test_import_leaves_jax_out():
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "build_mc33_tables_torch.py"),
+             os.path.join(ROOT, "tools", "roofline_torch.py"),
+             os.path.join(ROOT, "tools", "profile_emit_torch.py"),
              os.path.join(ROOT, "docs", "render_torch.py"),
              os.path.join(ROOT, "docs", "render_showcase_torch.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "sdf_torch")):
@@ -73,7 +77,7 @@ def _port_sources():
 
 
 def test_sources_name_no_jax():
-    """No module of the port, nor chip_smoke.py, its tool or its docs
+    """No module of the port, nor chip_smoke.py, its tools or its docs
     renderers, imports jax or sdf_tpu, even lazily."""
     paths = _port_sources()
     names = {os.path.relpath(p, ROOT) for p in paths}
@@ -86,7 +90,9 @@ def test_sources_name_no_jax():
             "sdf_torch/models/fit.py", "sdf_torch/parallel/grid.py",
             "sdf_torch/parallel/sparse.py", "sdf_torch/parallel/shards.py",
             "sdf_torch/parallel/multihost.py",
-            "tools/build_mc33_tables_torch.py", "docs/render_torch.py",
+            "tools/build_mc33_tables_torch.py", "tools/roofline_torch.py",
+            "tools/profile_emit_torch.py", "sdf_torch/utils/weather.py",
+            "docs/render_torch.py",
             "docs/render_showcase_torch.py"} <= names
     for path in paths:
         with open(path) as fp:
@@ -110,7 +116,15 @@ def test_kernel_sources_are_shipped_and_named():
     # package data ships each of them (*.cu does not match the .cuh)
     assert sorted(os.listdir(csrc)) == [
         "classify_ext.cu", "compact.cu", "eval_classify.cu", "eval_tiles.cu",
-        "label3d.cu", "mc33_cell.cuh", "ntri.cu", "sdf_point.cuh"]
+        "label3d.cu", "mc33_cell.cuh", "ntri.cu", "probes.cu",
+        "sdf_point.cuh"]
+    with open(os.path.join(csrc, "probes.cu")) as fp:
+        text = fp.read()
+    assert "Replaces: no TPU kernel" in text
+    assert "sdf_tpu/utils/weather.py `probe_rates`" in text
+    for entry in ("sdf_probe_muladd", "sdf_probe_sqrts", "sdf_probe_copy"):
+        assert 'extern "C" int %s(' % entry in text, entry
+    assert "fast_math" not in text and "fmaf(" not in text
     with open(os.path.join(csrc, "label3d.cu")) as fp:
         text = fp.read()
     assert "Replaces: scipy.ndimage.label (host)" in text
@@ -420,3 +434,76 @@ def test_label_kernel_raises_when_its_library_fails(monkeypatch):
     import inspect
 
     assert "except" not in inspect.getsource(mb.label_corners)
+
+
+def test_probe_wrappers_never_fall_back(monkeypatch):
+    """The probe kernels' wrappers refuse a tensor that is not on a card
+    and raise when their library cannot be built; neither gives way to the
+    plain versions, and neither counts a launch."""
+    from sdf_torch import _build
+    from sdf_torch.utils import weather
+
+    meta = torch.zeros(8, device="meta")
+    for fn, args in ((weather.muladd, (meta,) * 3),
+                     (weather.sqrts, (meta,) * 3), (weather.copy, (meta,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+
+    def no_library(stem, text):
+        raise RuntimeError("nvcc failed for %s" % stem)
+
+    plain = []
+    monkeypatch.setattr(_build, "load", no_library)
+    for name in ("_muladd_plain", "_sqrts_plain", "_copy_plain"):
+        monkeypatch.setattr(weather, name, lambda *a: plain.append(a))
+
+    class FakeCuda:
+        type = "cuda"
+
+    class FakeTensor:
+        dtype, device = torch.float32, FakeCuda()
+
+        def dim(self):
+            return 1
+
+        def numel(self):
+            return 8
+
+        def is_contiguous(self):
+            return True
+
+    t = FakeTensor()
+    before = [w.launches for w in (weather.muladd, weather.sqrts,
+                                   weather.copy)]
+    for fn, args in ((weather.muladd, (t,) * 3), (weather.sqrts, (t,) * 3),
+                     (weather.copy, (t,))):
+        with pytest.raises(RuntimeError, match="nvcc failed for probes"):
+            fn(*args)
+    assert plain == []
+    assert [w.launches for w in (weather.muladd, weather.sqrts,
+                                 weather.copy)] == before
+    import inspect
+
+    assert "except" not in inspect.getsource(weather)
+
+
+def test_measurement_tools_leave_jax_out():
+    """tools/roofline_torch.py and tools/profile_emit_torch.py, run on the
+    CPU at a tiny size, load neither jax nor sdf_tpu."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import profile_emit_torch, roofline_torch\n"
+        "from sdf_torch.utils import weather\n"
+        "weather.COPY_SHAPE = (64, 128)\n"
+        "roofline_torch.main(9, 'cpu')\n"
+        "profile_emit_torch.main(10, 'cpu')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'jaxlib', 'sdf_tpu'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert '"vpu_utilization"' in r.stdout and "rowpack kernel alone" in r.stdout
