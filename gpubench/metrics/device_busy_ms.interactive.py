@@ -1,0 +1,6 @@
+"""``device_busy_ms`` in the cells that report ``mesh_p95_ms`` and not
+``mesh_ms`` (the interactive cells): the same reading, moving the tail."""
+
+import harness
+
+read = harness.reader("device_busy_ms").read

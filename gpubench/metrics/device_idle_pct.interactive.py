@@ -1,0 +1,6 @@
+"""``device_idle_pct`` in the cells that report ``mesh_p95_ms`` and not
+``mesh_ms`` (the interactive cells): the same reading, moving the tail."""
+
+import harness
+
+read = harness.reader("device_idle_pct").read
