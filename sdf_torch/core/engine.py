@@ -37,7 +37,7 @@ that raises.  ``device="cpu"`` runs the kernels' plain versions.
 
 from __future__ import annotations
 
-import time
+import contextlib
 import warnings
 
 import numpy as np
@@ -46,7 +46,7 @@ import torch
 from ..io import meshfmt, stl
 from ..utils import checkpoint as ckpt
 from ..utils import progress
-from . import eval_classify, hybrid, mc, mc33, node, sparse as sparse_mod
+from . import eval_classify, hybrid, mc, mc33, node, spans, sparse as sparse_mod
 from .node import Points, cast, resolve_device, upload
 
 WORKERS = None
@@ -69,8 +69,11 @@ _COUNTS_MEMO = {}
 _SKIP_MEMO = {}
 _EMPTY = np.empty(0)
 
-# Structured report of the most recent generate(): phase wall times in
-# seconds plus batch/triangle counters (the JAX package's keys).
+# Structured report of the most recent generate(): span wall times in
+# seconds (``core.spans``: each span's key sums its occurrences in the
+# call; ``total`` is the root span's length), the counters ``host_waits``,
+# ``bounds_rounds`` and ``kernel_sources``, and batch/triangle counts (the
+# JAX package's keys).
 LAST_STATS = {}
 
 # When True, the dense generate() path fences device completion before
@@ -79,30 +82,14 @@ LAST_STATS = {}
 # fetched mesh arrays) -- one extra host wait per run, off by default.
 # Together with core.sparse.PROFILE for the tiles route it splits a warm
 # e2e into device / transfer / host decode, so a slow transfer cannot
-# masquerade as a device regression.
+# masquerade as a device regression.  It also keeps the call's list of
+# spans, ``stats["spans"]``: ``(name, start_ns, end_ns, parent)`` on the
+# profiler's clock, a new list each call (``core.spans``); and, on a card,
+# times the host's waits for it as ``wait`` spans (``stats["wait"]``): the
+# fence, and the part of each ``node.fetch`` spent before the copy.
 PROFILE = False
 
 _MC_VARIANT_ALIASES = {"fast": "default"}
-
-
-class _phase:
-    """Context manager: profiler range + LAST_STATS wall time (of the
-    host-side dispatch; device work is asynchronous)."""
-
-    def __init__(self, name, stats):
-        self.name = name
-        self.stats = stats
-
-    def __enter__(self):
-        self.t0 = time.time()
-        self.rf = torch.profiler.record_function("sdf_torch." + self.name)
-        self.rf.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.rf.__exit__(*exc)
-        self.stats[self.name] = round(time.time() - self.t0, 4)
-        return False
 
 
 def resolve_dtype(dtype):
@@ -161,6 +148,7 @@ def _estimate_bounds_host(sdf, dtype):
         prev = threshold
         Xt, Yt, Zt = [torch.as_tensor(a, dtype=dtype) for a in (X, Y, Z)]
         p = Points(Xt[:, None, None], Yt[None, :, None], Zt[None, None, :])
+        spans.count("bounds_rounds")
         vol = torch.as_tensor(sdf_c(p)).broadcast_to((s, s, s))
         vol = vol.to(torch.float64).numpy()
         where = np.argwhere(np.abs(vol) <= threshold * (1 + slack))
@@ -175,10 +163,11 @@ def _estimate_bounds_host(sdf, dtype):
 def _fingerprint_or_none(sdf, X, Y, Z, extras):
     """The memo key, or None for an expression that cannot be hashed (an
     exotic closure): such a call just recomputes."""
-    try:
-        return ckpt.fingerprint(sdf, X, Y, Z, extras)
-    except Exception:
-        return None
+    with spans.span("fingerprint"):
+        try:
+            return ckpt.fingerprint(sdf, X, Y, Z, extras)
+        except Exception:
+            return None
 
 
 def _estimate_bounds(sdf, dtype=torch.float32):
@@ -314,8 +303,8 @@ def _variant_tag(mc_variant):
     return (mc_variant,) if mc_variant != "default" else ()
 
 
-def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
-                bar, num_batches):
+def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, bar,
+                num_batches):
     """The dense pipeline of ``generate()``: returns ``(indexed (verts,
     faces), per_tile, skip, conflicted or None)`` with host arrays.
 
@@ -328,76 +317,83 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
     put in the counts memo)."""
     sshape = (-(-len(X) // s), -(-len(Y) // s), -(-len(Z) // s))
     if speculate:
-        with _phase("skip_dispatch", stats):
+        with spans.span("skip_dispatch"):
             skip_dev, sshape = _skip_mask_device(sdf, X, Y, Z, s, dtype,
                                                  device)
         skip3d = skip_dev.reshape(sshape)
     else:
         skip3d = torch.zeros(sshape, dtype=torch.bool, device=device)
 
-    t_dev0 = time.perf_counter()  # device-pipeline start (PROFILE)
-    fields = None
-    if hybrid.count_gathers(sdf):
-        # Kernel B1's pre-pass: the gather-bearing subtrees' fields over the
-        # whole grid, on the device, before the kernel that reads them.
-        with _phase("record_fields", stats):
-            fields = eval_classify.record_fields(sdf, X, Y, Z, dtype, device)
-    with _phase("eval_classify", stats):
-        vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
-                                                    device, fields)
-    del fields  # B1 was their one reader: free them before the emit
-    if mc_variant != "default":
-        # Extend kernel B1's 8-bit codes with the variant's saddle/interior
-        # bits (reusing them instead of re-deriving corner signs).
-        with _phase("classify_ext", stats):
-            case = mc33.classify_ext(vol, base_case=case)
-    bar.update(num_batches * 0.6)
+    dev0 = spans.clock()  # device-pipeline start (PROFILE)
+    # Under sparse=True, the dense pass up to the routing decision is the
+    # speculative span: a routed call discards it.
+    with spans.span("speculative") if speculate else contextlib.nullcontext():
+        fields = None
+        if hybrid.count_gathers(sdf):
+            # Kernel B1's pre-pass: the gather-bearing subtrees' fields over
+            # the whole grid, on the device, before the kernel that reads
+            # them.
+            with spans.span("record_fields"):
+                fields = eval_classify.record_fields(sdf, X, Y, Z, dtype,
+                                                     device)
+        with spans.span("eval_classify"):
+            vol, case = eval_classify.eval_and_classify(sdf, X, Y, Z, dtype,
+                                                        device, fields)
+        del fields  # B1 was their one reader: free them before the emit
+        if mc_variant != "default":
+            # Extend kernel B1's 8-bit codes with the variant's
+            # saddle/interior bits (reusing them instead of re-deriving
+            # corner signs).
+            with spans.span("classify_ext"):
+                case = mc33.classify_ext(vol, base_case=case)
+        bar.update(num_batches * 0.6)
 
-    cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
-    keep = _expand_tile_mask(~skip3d, s, cshape)
-    tshape = tuple(-(-c // s) for c in cshape)
-    with _phase("mc_count", stats):
-        ncells_dev, total, n_edges, per_tile_dev, active, emask = (
-            mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
-        )
-    confl = None
-    pending = [per_tile_dev, skip3d]  # statistics not fetched yet
-    counts = [ncells_dev, total, n_edges]
-    if mc_variant == "lewiner":
-        # Observability for majority-voted table entries; rides the counts
-        # transfer below.
-        counts.append(mc33.count_conflicted(case, keep))
-
-    # Counts are deterministic in (expression, grid, dtype, cull mode,
-    # variant, and the device type: sin and cos differ between the CPU and
-    # the card): a repeat generate() of an unchanged model reuses them,
-    # dispatches emit at once and lets the statistics ride the mesh
-    # transfer.  A non-speculative run reaches here only with the all-False
-    # mask of sparse=False, so the flag stands for the mask.
-    ckey = _fingerprint_or_none(
-        sdf, X, Y, Z,
-        ("counts", str(dtype), s, bool(speculate), device.type)
-        + _variant_tag(mc_variant),
-    )
-    memo = _COUNTS_MEMO.get(ckey) if ckey is not None else None
-    if memo is not None:
-        n_cells, n, ne, confl = memo
-        if n_cells == 0:
-            per_tile, skip = node.fetch(pending)
-            pending = []
-    else:
-        # The one host sync before emit: every count, the per-tile counters
-        # and the cull mask in a single transfer.
-        got = node.fetch(counts + pending)
-        pending = []
-        n_cells, n, ne = (int(v) for v in got[:3])
+        cshape = (len(X) - 1, len(Y) - 1, len(Z) - 1)
+        keep = _expand_tile_mask(~skip3d, s, cshape)
+        tshape = tuple(-(-c // s) for c in cshape)
+        with spans.span("mc_count"):
+            ncells_dev, total, n_edges, per_tile_dev, active, emask = (
+                mc.count_indexed(vol, case, keep, s, tshape, mc_variant)
+            )
+        confl = None
+        pending = [per_tile_dev, skip3d]  # statistics not fetched yet
+        counts = [ncells_dev, total, n_edges]
         if mc_variant == "lewiner":
-            confl = int(got[3])
-        per_tile, skip = got[-2], got[-1]
-    bar.update(num_batches * 0.8)
+            # Observability for majority-voted table entries; rides the
+            # counts transfer below.
+            counts.append(mc33.count_conflicted(case, keep))
 
-    routed = (memo is None and speculate
-              and skip.mean() >= AUTO_TILES_THRESHOLD)
+        # Counts are deterministic in (expression, grid, dtype, cull mode,
+        # variant, and the device type: sin and cos differ between the CPU
+        # and the card): a repeat generate() of an unchanged model reuses
+        # them, dispatches emit at once and lets the statistics ride the
+        # mesh transfer.  A non-speculative run reaches here only with the
+        # all-False mask of sparse=False, so the flag stands for the mask.
+        ckey = _fingerprint_or_none(
+            sdf, X, Y, Z,
+            ("counts", str(dtype), s, bool(speculate), device.type)
+            + _variant_tag(mc_variant),
+        )
+        with spans.span("counts"):
+            memo = _COUNTS_MEMO.get(ckey) if ckey is not None else None
+            if memo is not None:
+                n_cells, n, ne, confl = memo
+                if n_cells == 0:
+                    per_tile, skip = node.fetch(pending)
+                    pending = []
+            else:
+                # The one host sync before emit: every count, the per-tile
+                # counters and the cull mask in a single transfer.
+                got = node.fetch(counts + pending)
+                pending = []
+                n_cells, n, ne = (int(v) for v in got[:3])
+                if mc_variant == "lewiner":
+                    confl = int(got[3])
+                per_tile, skip = got[-2], got[-1]
+        bar.update(num_batches * 0.8)
+
+        routed = (memo is None and speculate
+                  and skip.mean() >= AUTO_TILES_THRESHOLD)
     if memo is None and not routed:  # a routed run is never memoized
         ckpt.memo_put(_COUNTS_MEMO, ckey, (n_cells, n, ne, confl))
 
@@ -418,29 +414,20 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, stats,
         packed = False
         if dtype == torch.float32:
             packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
-        with _phase("mc_emit", stats):
+        with spans.span("mc_emit"):
             everts, faces = mc.gather_emit_indexed(
                 vol, case, active, emask, edge_capacity, capacity,
                 cell_capacity, packed=packed, variant=mc_variant,
             )
-        if PROFILE:
-            # Fence device completion so the d2h phase below measures the
-            # transfer, not residual device work.
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            stats["device"] = round(time.perf_counter() - t_dev0, 4)
-        with _phase("d2h", stats):
-            # One transfer: the mesh and, on a memoized run, the statistics.
-            got = node.fetch([everts[:, :ne], faces[:, :n]] + pending)
-            eh, fh = got[:2]
-            if pending:
-                per_tile, skip = got[2:]
-            if PROFILE:  # the mesh arrays, not the pending statistics
-                stats["d2h_bytes"] = int(eh.nbytes + fh.nbytes)
+        # One transfer: the mesh and, on a memoized run, the statistics.
+        got = node.fetch_mesh([everts[:, :ne], faces[:, :n]] + pending, 2,
+                              device, dev0, profile=PROFILE)
+        eh, fh = got[:2]
+        if pending:
+            per_tile, skip = got[2:]
+        with spans.span("decode"):
             if packed is not False:  # int32 bit patterns of uint32 words
                 eh, fh = eh.view(np.uint32), fh.view(np.uint32)
-        with _phase("decode", stats):
-            if packed is not False:
                 indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
             else:
                 indexed = (eh.astype(np.float64).T, fh.T.astype(np.int32))
@@ -503,11 +490,60 @@ def generate(
     rank, ``mesh=None`` shards over all of them; a mesh of one rank is the
     single-device run.  No speculative cull under a mesh, and
     ``mc33_conflicted_cells`` is absent from ``LAST_STATS`` there.
+
+    ``LAST_STATS`` reports the call (an empty grid or a resumed checkpoint
+    leaves the last one's).  Every host millisecond of it lies under the
+    root span ``generate``, whose length is ``total``; the spans below it
+    (``core.spans``) add their seconds to keys of their names:
+    ``route_fields``, ``bounds``, ``fingerprint`` (every memo key and the
+    tiles' cull-mask hash), ``skip_dispatch`` or ``skip_mask`` (the cull),
+    ``speculative`` (under ``sparse=True``, the dense pass up to the
+    routing decision, which a routed call discards: ``record_fields``,
+    ``eval_classify``, ``classify_ext``, ``mc_count``, ``counts``),
+    ``counts`` (the pre-emit counts fetch), ``kernel_source`` (the eval
+    kernels' source and library lookup at each launch), ``mc_emit``,
+    ``d2h``, ``decode``, ``sparse_tiles`` (the tiles route), and
+    ``transform`` (the world transform and the per-tile statistics).  The
+    counters: ``host_waits`` (``node.fetch`` calls: 2 for a dense call that
+    misses the counts memo, 1 on a hit, 3 for a routed call),
+    ``bounds_rounds`` (probe grids of the bounds refinement, 0 on a memo
+    hit: many rounds tell a slow refinement from a slow expression) and
+    ``kernel_sources`` (sources generated for kernels B1/B6/B7).  Under
+    ``PROFILE``: ``spans``, ``wait``, ``device``, ``d2h_bytes`` and, with
+    ``sparse.PROFILE``, ``tiles_device``, ``tiles_d2h``,
+    ``tiles_d2h_bytes``, ``tiles_decode`` (see ``PROFILE``).
     """
-    start = time.time()
+    stats = {}
+    with spans.call(stats, PROFILE) as root:
+        out = _generate(sdf, step, bounds, samples, workers, batch_size,
+                        verbose, sparse, dtype, mesh, checkpoint, debug,
+                        output, mc_variant, device, stats)
+    if "triangles" not in stats:  # an empty grid or a resumed checkpoint
+        return out
+    stats["total"] = root.seconds
+    LAST_STATS.clear()
+    LAST_STATS.update(stats)
+    if verbose:
+        print("%d skipped, %d empty, %d nonempty"
+              % (stats["skipped"], stats["empty"], stats["nonempty"]))
+        if stats.get("mc33_conflicted_cells"):
+            print(
+                "%d cells hit majority-voted MC33 table entries "
+                "(docs/TOPOLOGY.md section 4.2)"
+                % stats["mc33_conflicted_cells"]
+            )
+        print("%d triangles in %g seconds" % (stats["triangles"],
+                                              root.seconds))
+    return out
+
+
+def _generate(sdf, step, bounds, samples, workers, batch_size, verbose,
+              sparse, dtype, mesh, checkpoint, debug, output, mc_variant,
+              device, stats):
+    """The body of ``generate()``, inside its root span: the result, with
+    the call's statistics in ``stats``."""
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
-    stats = {}
     mc_variant = _MC_VARIANT_ALIASES.get(mc_variant, mc_variant)
     mc.get_tables(mc_variant)  # validate the name / load tables eagerly
     if output not in ("points", "mesh"):
@@ -521,7 +557,8 @@ def generate(
     mesh = _resolve_mesh(mesh, device)
     # Subtrees whose ops have no form in the eval kernels' body become
     # recorded fields (the reference's fallback from its kernel to XLA).
-    sdf, routed_ops = hybrid.route_fields(sdf, stats, dtype)
+    with spans.span("route_fields"):
+        sdf, routed_ops = hybrid.route_fields(sdf, stats, dtype)
     if routed_ops and verbose:
         print("%d subtree(s) evaluated ahead as fields, for want of a "
               "kernel form of: %s" % (len(routed_ops),
@@ -540,7 +577,7 @@ def generate(
         )
 
     if bounds is None:
-        with _phase("bounds", stats):
+        with spans.span("bounds"):
             bounds = _estimate_bounds(sdf, dtype)
     (x0, y0, z0), (x1, y1, z1) = bounds
 
@@ -593,9 +630,11 @@ def generate(
         # batch_size changes the cull granularity (a different triangle set
         # for inexact SDFs) and debug= changes the returned points: both
         # must invalidate a cached mesh.
-        fp = ckpt.fingerprint(
-            sdf, X, Y, Z, (sparse, str(dtype), s, bool(debug)) + variant_tag
-        )
+        with spans.span("fingerprint"):
+            fp = ckpt.fingerprint(
+                sdf, X, Y, Z,
+                (sparse, str(dtype), s, bool(debug)) + variant_tag
+            )
         cached = ckpt.load(checkpoint, fp)
         if cached is not None:
             bar.done()
@@ -611,7 +650,7 @@ def generate(
             sdf, X, Y, Z,
             ("tiles-counts", str(dtype), s, device.type) + variant_tag,
         )
-        with _phase("sparse_tiles", stats):
+        with spans.span("sparse_tiles"):
             return sparse_mod.mesh_sparse_tiles(
                 sdf, X, Y, Z, skip, s, dtype, device, memo_key=mkey,
                 variant=mc_variant, stats=stats,
@@ -621,7 +660,7 @@ def generate(
         # The cull mask evaluated on the host (memoized per expression and
         # grid): the tile list is made from it, and every rank of a mesh
         # computes the same one.
-        with _phase("skip_mask", stats):
+        with spans.span("skip_mask"):
             skey = _fingerprint_or_none(sdf, X, Y, Z, ("skip", str(dtype), s))
             skip = _SKIP_MEMO.get(skey) if skey is not None else None
             if skip is None:
@@ -647,12 +686,12 @@ def generate(
             stats["auto_tiles"] = round(float(skip.mean()), 4)
         if sparse == "tiles":
             # The active-tile list dealt over the ranks.
-            with _phase("sparse_tiles_sharded", stats):
+            with spans.span("sparse_tiles_sharded"):
                 indexed, per_tile = psparse.mesh_sparse_tiles_sharded(
                     sdf, X, Y, Z, skip, s, mesh, dtype, device,
                     return_indexed=True, variant=mc_variant)
         else:
-            with _phase("mesh_and_march", stats):
+            with spans.span("mesh_and_march"):
                 indexed, per_tile = pgrid.mesh_and_march(
                     sdf, X, Y, Z, skip, s, mesh, dtype, device,
                     return_indexed=True, variant=mc_variant)
@@ -663,31 +702,32 @@ def generate(
         bar.update(num_batches * 0.8)
     else:
         indexed, per_tile, skip, confl = _dense_path(
-            sdf, X, Y, Z, s, dtype, device, mc_variant, sparse is True, stats,
-            bar, num_batches,
+            sdf, X, Y, Z, s, dtype, device, mc_variant, sparse is True, bar,
+            num_batches,
         )
         if indexed is None:  # the cull routed the run to the tiles
             stats["auto_tiles"] = round(float(skip.mean()), 4)
             indexed, per_tile = tiles_path(skip)
 
-    scale = np.array([dx, dy, dz])
-    offset = np.array([X[0], Y[0], Z[0]])
-    mverts = indexed[0] * scale + offset
-    mfaces = indexed[1]
-    points = None if want_indexed else mverts[mfaces.reshape(-1)]
+    with spans.span("transform"):
+        scale = np.array([dx, dy, dz])
+        offset = np.array([X[0], Y[0], Z[0]])
+        mverts = indexed[0] * scale + offset
+        mfaces = indexed[1]
+        points = None if want_indexed else mverts[mfaces.reshape(-1)]
+        # per_tile is sized on cell tiles, which can be one short of the
+        # sample-tile grid when an axis has a degenerate 1-sample last tile.
+        pt = np.zeros(skip.shape, dtype=np.int64)
+        a, b, c = per_tile.shape
+        pt[:a, :b, :c] = per_tile[: skip.shape[0], : skip.shape[1],
+                                  : skip.shape[2]]
+        skipped = int(skip.sum())
+        nonempty = int(((pt > 0) & ~skip).sum())
+        empty = num_batches - skipped - nonempty
     bar.done()
 
     if checkpoint is not None:
         ckpt.save(checkpoint, fp, points)
-
-    # per_tile is sized on cell tiles, which can be one short of the
-    # sample-tile grid when an axis has a degenerate 1-sample last tile.
-    pt = np.zeros(skip.shape, dtype=np.int64)
-    a, b, c = per_tile.shape
-    pt[:a, :b, :c] = per_tile[: skip.shape[0], : skip.shape[1], : skip.shape[2]]
-    skipped = int(skip.sum())
-    nonempty = int(((pt > 0) & ~skip).sum())
-    empty = num_batches - skipped - nonempty
 
     if debug and (mesh is None or mesh.get_local_rank() == 0):
         # Under a mesh the statistics are global: one rank adds the boxes.
@@ -696,7 +736,8 @@ def generate(
             [points, _debug_triangles(X, Y, Z, flagged, s)], axis=0
         )
     triangles = len(mfaces) if points is None else len(points) // 3
-    seconds = time.time() - start
+    if confl is not None:
+        stats["mc33_conflicted_cells"] = confl
     stats.update(
         batches=num_batches,
         samples=num_samples,
@@ -704,20 +745,7 @@ def generate(
         empty=empty,
         nonempty=nonempty,
         triangles=triangles,
-        total=round(seconds, 4),
     )
-    if confl is not None:
-        stats["mc33_conflicted_cells"] = confl
-    LAST_STATS.clear()
-    LAST_STATS.update(stats)
-    if verbose:
-        print("%d skipped, %d empty, %d nonempty" % (skipped, empty, nonempty))
-        if confl:
-            print(
-                "%d cells hit majority-voted MC33 table entries "
-                "(docs/TOPOLOGY.md section 4.2)" % confl
-            )
-        print("%d triangles in %g seconds" % (triangles, seconds))
 
     if output == "mesh":
         if points is not None:  # debug boxes are soup-only: dedup on host

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from . import hybrid
+from . import hybrid, spans
 from .mc import _cell_cases
 from .node import Points, cast, tree_leaves, tree_map, upload
 
@@ -584,12 +584,16 @@ def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
             raise ValueError(
                 "eval_and_classify: a field must be %s of shape %s on %s"
                 % (dtype, tuple(vol.shape), vol.device))
-    lib = _build.load("eval_classify", kernel_source(sdf, len(fields), dtype))
-    fn = getattr(lib, "sdf_eval_classify_"
-                 + ("f32" if dtype == torch.float32 else "f64"))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp, vp]
-    fn.restype = ctypes.c_int
+    with spans.span("kernel_source"):
+        spans.count("kernel_sources")
+        lib = _build.load("eval_classify",
+                          kernel_source(sdf, len(fields), dtype))
+        fn = getattr(lib, "sdf_eval_classify_"
+                     + ("f32" if dtype == torch.float32 else "f64"))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp,
+                       vp]
+        fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
     P = _params_arg(sdf, dtype, device)
     ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
@@ -812,15 +816,17 @@ def _launch_tiles(sdf, X, Y, Z, tiles, tile, dtype, live, fields, counter,
         return vols, case
     sms = torch.cuda.get_device_properties(tiles.device).multi_processor_count
     S, blocks, csize, _ = tile_plan(tile, rows, sms, blocks, csize)
-    lib = _build.load("eval_tiles", tile_kernel_source(sdf, len(fields),
-                                                       dtype))
-    fn = getattr(lib, "sdf_eval_tiles_%s%s" % (
-        "fields_" if fields else "",
-        "f32" if dtype == torch.float32 else "f64"))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i, i, i, i, i, i, i,
-                   vp, i, vp, vp, vp]
-    fn.restype = ctypes.c_int
+    with spans.span("kernel_source"):
+        spans.count("kernel_sources")
+        lib = _build.load("eval_tiles", tile_kernel_source(sdf, len(fields),
+                                                           dtype))
+        fn = getattr(lib, "sdf_eval_tiles_%s%s" % (
+            "fields_" if fields else "",
+            "f32" if dtype == torch.float32 else "f64"))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i, i, i, i, i, i,
+                       i, vp, i, vp, vp, vp]
+        fn.restype = ctypes.c_int
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, tiles.device)
     P = _params_arg(sdf, dtype, tiles.device)
     ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])

@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from . import spans
+
 
 def _shape(x):
     return tuple(x.shape) if hasattr(x, "shape") else ()
@@ -222,7 +224,11 @@ def upload(arrays, dtype, device):
 def fetch(tensors):
     """Tensors of any dtypes on one device -> numpy arrays of the same
     shapes, in ONE device-to-host transfer (each ``.cpu()`` waits for the
-    card once): the tensors travel as bytes, each padded to 8."""
+    card once): the tensors travel as bytes, each padded to 8.  Counts one
+    ``host_waits`` of the open ``generate()`` call; under ``engine.PROFILE``
+    on a card, the wait for the card is a ``wait`` span of its own, split
+    from the copy by a CUDA event recorded just before it (the pageable
+    copy would wait for the same work)."""
     parts, metas = [], []
     for t in tensors:
         b = t.contiguous().reshape(-1).view(torch.uint8)
@@ -231,13 +237,42 @@ def fetch(tensors):
             b = torch.cat([b, b.new_zeros(pad)])
         parts.append(b)
         metas.append((b.numel(), t.numel() * t.element_size(), t))
-    flat = torch.cat(parts).cpu().numpy()
+    spans.count("host_waits")
+    flat = torch.cat(parts)
+    if flat.is_cuda and spans.profiling():
+        queued = torch.cuda.Event()
+        queued.record(torch.cuda.current_stream(flat.device))
+        with spans.span("wait"):
+            queued.synchronize()
+    flat = flat.cpu().numpy()
     out, at = [], 0
     for padded, nbytes, t in metas:
         dt = torch.empty(0, dtype=t.dtype).numpy().dtype
         out.append(flat[at: at + nbytes].view(dt).reshape(tuple(t.shape)))
         at += padded
     return out
+
+
+def fetch_mesh(tensors, nmesh, device, since, prefix="", profile=False):
+    """``fetch(tensors)``, the mesh readback of the dense path (``prefix``
+    "") or of the tiles (``"tiles_"``), under the span ``<prefix>d2h``.
+    Under ``profile`` (``engine.PROFILE``, ``sparse.PROFILE``) the card is
+    first fenced (``spans.fence``), so that ``<prefix>d2h`` times the
+    transfer and not residual device work, and the call's stats get
+    ``<prefix>device``, the seconds from ``since`` (a ``spans.clock()``
+    reading) to the fence's end, and ``<prefix>d2h_bytes``, the bytes of
+    the first ``nmesh`` arrays (the mesh, not the statistics riding along).
+    The dense path's ``d2h`` key is always written, the tiles'
+    ``tiles_d2h`` only under ``profile``."""
+    if profile:
+        spans.fence(device)
+        spans.put(prefix + "device", spans.since(since))
+    with spans.span(prefix + "d2h", key=profile or not prefix):
+        got = fetch(tensors)
+    if profile:
+        spans.put(prefix + "d2h_bytes",
+                  int(sum(a.nbytes for a in got[:nmesh])))
+    return got
 
 
 def cast(node, dtype, device):

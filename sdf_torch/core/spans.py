@@ -1,0 +1,152 @@
+"""The program's one span recorder: named host spans and integer counters
+of a ``generate()`` call (``core.engine``), on ``torch.profiler``'s clock.
+
+``generate()`` opens the root span ``generate`` (``call``); every span
+opened until it closes, in any module, belongs to that call.  A span
+(``span(name)``):
+
+  * opens the profiler range ``sdf_torch.<name>``, in or outside a call;
+  * inside a call, adds its wall time in seconds (a monotonic clock,
+    unrounded) to the call's ``stats[name]``, summed over its occurrences;
+  * inside a call under ``engine.PROFILE``, appends ``(name, start_ns,
+    end_ns, parent)`` to the call's list of spans, a new list each call
+    (``stats["spans"]``): ``parent`` is the index of the enclosing span,
+    None for the root.  The times are nanoseconds since the Unix epoch, the
+    clock ``torch.profiler`` stamps its events with: the monotonic readings
+    are mapped onto it through one pair of readings of both clocks taken
+    when the call opens.
+
+Counters (``count``) are integers of the call's ``stats``, always on and
+zero when the call opens (``COUNTERS``).  Outside a call a span opens only
+its profiler range and a counter counts nothing.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import time
+
+import torch
+
+# host_waits: node.fetch calls (each waits for the card once); bounds_rounds:
+# probe grids the bounds refinement evaluated; kernel_sources: kernel
+# sources generated by the eval kernels' launch wrappers.
+COUNTERS = ("host_waits", "bounds_rounds", "kernel_sources")
+
+# The open call's _Call, or None: one per thread (and asyncio task).
+_CALL = contextvars.ContextVar("sdf_torch_spans_call", default=None)
+
+
+class _Call:
+    __slots__ = ("stats", "spans", "stack", "offset")
+
+    def __init__(self, stats, profile):
+        self.stats = stats
+        self.spans = [] if profile else None
+        self.stack = [None]  # indices of the open spans; the root's parent
+        # Unix-epoch ns minus monotonic ns, read once for the call.
+        self.offset = time.time_ns() - time.perf_counter_ns()
+
+
+class span:
+    """Context manager: the span ``name`` (see the module docstring).
+    ``key=False`` keeps the span out of the call's ``stats`` keys (its
+    range and its entry in the list of spans stay)."""
+
+    __slots__ = ("name", "key", "_rf", "_t0", "_t1", "_at")
+
+    def __init__(self, name, key=True):
+        self.name = name
+        self.key = key
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function("sdf_torch." + self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        c = _CALL.get()
+        if c is not None and c.spans is not None:
+            self._at = len(c.spans)
+            c.spans.append((self.name, self._t0 + c.offset, None,
+                            c.stack[-1]))
+            c.stack.append(self._at)
+        return self
+
+    def __exit__(self, *exc):
+        self._t1 = time.perf_counter_ns()
+        c = _CALL.get()
+        if c is not None:
+            if self.key:
+                c.stats[self.name] = (c.stats.get(self.name, 0.0)
+                                      + (self._t1 - self._t0) * 1e-9)
+            if c.spans is not None:
+                c.stack.pop()
+                name, start, _, parent = c.spans[self._at]
+                c.spans[self._at] = (name, start, self._t1 + c.offset, parent)
+        self._rf.__exit__(*exc)
+        return False
+
+
+class call(span):
+    """The root span ``generate`` of one call, recording into ``stats``
+    (``profile``: ``engine.PROFILE``, which keeps the list of spans).  Its
+    length in seconds is ``seconds`` once it has closed; it writes no key
+    of its own (``generate()`` reports it as ``total``)."""
+
+    __slots__ = ("stats", "profile", "seconds", "_call", "_token")
+
+    def __init__(self, stats, profile):
+        super().__init__("generate", key=False)
+        self.stats = stats
+        self.profile = profile
+
+    def __enter__(self):
+        self.stats.update(dict.fromkeys(COUNTERS, 0))
+        self._call = _Call(self.stats, self.profile)
+        self._token = _CALL.set(self._call)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        _CALL.reset(self._token)
+        self.seconds = (self._t1 - self._t0) * 1e-9
+        if self._call.spans is not None:
+            self.stats["spans"] = self._call.spans
+        return False
+
+
+def count(name):
+    """Add one to the open call's counter ``name``."""
+    c = _CALL.get()
+    if c is not None:
+        c.stats[name] += 1
+
+
+def put(key, value):
+    """Set ``stats[key]`` of the open call."""
+    c = _CALL.get()
+    if c is not None:
+        c.stats[key] = value
+
+
+def profiling():
+    """Whether the open call records its spans (``engine.PROFILE``)."""
+    c = _CALL.get()
+    return c is not None and c.spans is not None
+
+
+def clock():
+    """The recorder's monotonic clock, ns (for ``since``)."""
+    return time.perf_counter_ns()
+
+
+def since(t0):
+    """Seconds from the ``clock()`` reading ``t0`` to now."""
+    return (time.perf_counter_ns() - t0) * 1e-9
+
+
+def fence(device):
+    """Wait for the card to finish its queued work, in a ``wait`` span
+    (PROFILE's fence before a mesh readback; nothing on the CPU)."""
+    if device.type == "cuda":
+        with span("wait"):
+            torch.cuda.synchronize(device)

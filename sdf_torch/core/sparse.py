@@ -28,13 +28,12 @@ timed race against the compiler's own evaluation) have no counterpart.
 from __future__ import annotations
 
 import hashlib
-import time
 
 import numpy as np
 import torch
 
 from ..utils import checkpoint as ckpt
-from . import compact, eval_classify, hybrid, mc, mc33, node
+from . import compact, eval_classify, hybrid, mc, mc33, node, spans
 from .eval_classify import _eval_tiles  # noqa: F401  (B6/B7's plain version)
 from .mc import round_capacity
 from .node import upload
@@ -346,9 +345,11 @@ def unpack_tiles_indexed(epack, fpack, tiles_np, tile, dtype=np.float32):
 _COUNTS_MEMO = {}
 
 # When True, mesh_sparse_tiles splits its wall time into device / d2h /
-# decode sub-phases in ``stats`` (one extra fenced read per run, to separate
-# device completion from transfer; off by default so the warm path keeps its
-# one wait).
+# decode sub-phases in the ``generate()`` call's stats, ``tiles_device``,
+# ``tiles_d2h`` (with ``tiles_d2h_bytes``) and ``tiles_decode`` (one extra
+# fenced read per run, to separate device completion from transfer; off by
+# default so the warm path keeps its one wait).  The spans ``tiles_d2h``
+# and ``tiles_decode`` open their profiler ranges either way.
 PROFILE = False
 
 
@@ -368,9 +369,10 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
     Host waits: one for the counts (none on a memo hit), one for the mesh.
     The active-tile list is made on the host from ``skip``.  Subtrees the
     kernels' body cannot hold become fields (``hybrid.route_fields``)."""
-    t_entry = time.perf_counter()
+    dev0 = spans.clock()  # "tiles_device" starts here (PROFILE)
     device = torch.device(device)
-    sdf, _ = hybrid.route_fields(sdf, stats, dtype)
+    with spans.span("route_fields"):
+        sdf, _ = hybrid.route_fields(sdf, stats, dtype)
     nx, ny, nz = len(X), len(Y), len(Z)
     cshape = (nx - 1, ny - 1, nz - 1)
 
@@ -416,17 +418,18 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
     # per-tile statistics WITH the mesh in one transfer.
     ckey = cached = None
     if memo_key is not None:
-        ckey = (
-            memo_key, mode, tile, variant,
-            hashlib.sha256(np.ascontiguousarray(skip).tobytes()).hexdigest(),
-        )
+        with spans.span("fingerprint"):
+            mask = hashlib.sha256(np.ascontiguousarray(skip).tobytes())
+            ckey = (memo_key, mode, tile, variant, mask.hexdigest())
         cached = _COUNTS_MEMO.get(ckey)
     per_tile_h = None
     if cached is not None:
         n, ncl, ne = cached
     else:
         # One transfer for all three capacity counts + statistics.
-        n, ncl, ne, per_tile_h = node.fetch([total, ncell, nedge, per_tile])
+        with spans.span("counts"):
+            n, ncl, ne, per_tile_h = node.fetch([total, ncell, nedge,
+                                                 per_tile])
         n, ncl, ne = int(n), int(ncl), int(ne)
         ckpt.memo_put(_COUNTS_MEMO, ckey, (n, ncl, ne))
 
@@ -448,33 +451,22 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
         vols, tiles_d, live_d, case, emask, cshape, edge_capacity, capacity,
         cell_capacity, tile, packed=packed, variant=variant,
     )
-    profile = PROFILE and stats is not None
-    if profile:
-        # Fence device completion so the d2h phase below measures the
-        # transfer; "device" is everything from entry (dispatch, eval, the
-        # counts wait on a cold run, emit) to that fence.
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stats["tiles_device"] = round(time.perf_counter() - t_entry, 4)
-        t0 = time.perf_counter()
     # The emitted count equals ``total`` (fetched or memoized), so the
-    # slices need no further wait.
-    got = node.fetch([everts[:, :ne], faces[:, :n]]
-                        + ([per_tile] if per_tile_h is None else []))
+    # slices need no further wait.  "tiles_device" (PROFILE) is everything
+    # from entry (dispatch, eval, the counts wait on a cold run, emit) to
+    # the fence before the transfer.
+    got = node.fetch_mesh([everts[:, :ne], faces[:, :n]]
+                          + ([per_tile] if per_tile_h is None else []), 2,
+                          device, dev0, prefix="tiles_", profile=PROFILE)
     eh, fh_raw = got[:2]
     if per_tile_h is None:
         per_tile_h = got[2]
-    if profile:
-        stats["tiles_d2h"] = round(time.perf_counter() - t0, 4)
-        stats["tiles_d2h_bytes"] = int(eh.nbytes + fh_raw.nbytes)
-        t0 = time.perf_counter()
-    pt[tuple(active.T)] = per_tile_h[:nt]
-    if packed is not False:  # int32 bit patterns of uint32 words
-        vh, fh = unpack_tiles_indexed(eh.view(np.uint32),
-                                      fh_raw.view(np.uint32), tiles, tile)
-    else:
-        vh = eh.astype(np.float64).T  # (ne, 3)
-        fh = fh_raw.T.astype(np.int32)
-    if profile:
-        stats["tiles_decode"] = round(time.perf_counter() - t0, 4)
+    with spans.span("tiles_decode", key=PROFILE):
+        pt[tuple(active.T)] = per_tile_h[:nt]
+        if packed is not False:  # int32 bit patterns of uint32 words
+            vh, fh = unpack_tiles_indexed(eh.view(np.uint32),
+                                          fh_raw.view(np.uint32), tiles, tile)
+        else:
+            vh = eh.astype(np.float64).T  # (ne, 3)
+            fh = fh_raw.T.astype(np.int32)
     return (vh, fh), pt

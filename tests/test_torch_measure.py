@@ -38,7 +38,7 @@ from sdf_torch.core import node as tnode
 import torch_helpers as th
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROFILE_KEYS = ("device", "d2h_bytes")
+PROFILE_KEYS = ("device", "d2h_bytes", "spans")
 
 
 def _tool(name):
@@ -58,7 +58,7 @@ def _fresh_memos():
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_profile_keys_soup_and_d2h_bytes(monkeypatch, dtype):
-    """PROFILE adds exactly its two keys, changes no soup, and counts the
+    """PROFILE adds exactly its keys, changes no soup, and counts the
     bytes the JAX package counts: the mesh arrays of the one transfer."""
     kw = dict(samples=2**15, verbose=False, dtype=dtype, sparse=False)
     assert tengine.PROFILE is False  # off by default
