@@ -23,6 +23,15 @@ Phases, each printing its own lines:
      291,028 triangles, a soup bit-equal to the device="cpu" run, all five
      kernels launched, no conflicted cell, the first call against the
      second (memoized) call, the warm time and the profiled idle share;
+     then the bounds refinement on the card: every round of every zoo
+     model's refinement in both dtypes, the probe kernel's volume (P4,
+     bounds_probe_kernel in B1's library) bit-equal to the plain torch
+     evaluation of the same grid on the card and the bounds bit-equal to
+     the CPU refinement's; knurling's and blobby's generate() at 2**22
+     with the memos emptied, the probe launched once a round, no B1
+     launch and one host wait a round beyond the bounds-memo hit, the
+     memoized bounds equal to the CPU's; P4 timed on a knurling round
+     with CUDA events;
   7. the same at 2**24 in float64: 731,152 triangles, the pinned soup, and
      the extended-case grid of kernel B2 bit-equal to its plain version on
      the same volume, its sha256 printed beside the pin of
@@ -170,7 +179,10 @@ carries its other shapes, scipy's host ms in place of a library call, the
 build's wall and the realizations labelled per n; the three probes'
 entries, at the shapes of phase 23's roofline run, carry that ``shape``,
 their launches in that run, and for the copy ``torch.add``'s time as the
-library call), the card line again, and last
+library call; the bounds probe's entry, P4, at a float32 16^3 round of
+knurling's refinement, carries that ``shape``, its launches in knurling's
+cold generate(), and the host's wall for the round on the card and on the
+CPU), the card line again, and last
 the result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
@@ -199,6 +211,10 @@ phase 22 alone.
 
 ``python3 chip_smoke.py --measure`` builds phase 23's libraries, runs
 phase 23 alone and prints the probes' entries of the kernels line.
+
+``python3 chip_smoke.py --bounds`` runs phase 6's bounds refinement alone
+(it builds its own libraries) and prints the probe's entry of the kernels
+line.
 
 ``python3 chip_smoke.py --diffmesh`` builds kernels B2, B3 and B4 and runs
 phases 16 to 19 alone (a few minutes shorter than the whole script).
@@ -2960,6 +2976,198 @@ def measurement_phase(dev, kernels):
               n, m, time.perf_counter() - t0, C4_COUNT_ATOL, C4_COUNT_RTOL))
 
 
+# -- phase 6, bounds: the bounds refinement's probe kernel (P4) ---------------
+
+
+def bounds_models(sp, zoo, hybrid, eval_classify, dtype):
+    """The zoo's models (the README example among them) that take the
+    card's bounds rounds in ``dtype``: gather-free once routed as
+    generate() routes them, with a body."""
+    out = []
+    for name, (build, _) in zoo.MODELS.items():
+        f = hybrid.route_fields(build(), None, dtype)[0]
+        if hybrid.count_gathers(f):
+            continue
+        try:
+            eval_classify.kernel_source(f, 0, dtype)
+        except eval_classify.NoCppForm:
+            continue
+        out.append((name, f))
+    return out
+
+
+def bounds_phase(dev, kernels):
+    """Phase 6's bounds refinement on the card.  Every round of every zoo
+    model's refinement in both dtypes: the probe kernel's volume bit-equal
+    to the plain torch evaluation of the same grid on the card, and the
+    card's bounds bit-equal to the CPU refinement's.  generate() of
+    knurling and blobby at 2**22 with the memos emptied: the probe launched
+    once a round, no B1 launch and one host wait more a round than the
+    same call on a bounds-memo hit, the bounds it memoized bit-equal to the
+    CPU's.  Adds the probe's entry (P4) to ``kernels``: a float32 round of
+    knurling's refinement, the launch alone timed with CUDA events
+    (``event_ms``: no profiler session, so the later phases' profiles are
+    not crowded out), against its plain version's device span on the card
+    and the bound, with the host's wall for the round on the card and on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch import _build
+    from sdf_torch.core import engine, eval_classify, hybrid, sparse, spans
+    from sdf_torch.models import zoo
+
+    print("== phase 6, bounds: the bounds refinement's probe kernel (P4) on "
+          "the card", flush=True)
+    dtypes = (torch.float32, torch.float64)
+    models = {dt: bounds_models(sp, zoo, hybrid, eval_classify, dt)
+              for dt in dtypes}
+    t0 = time.time()
+    libs = _build.build_many(sorted({
+        ("eval_classify", eval_classify.kernel_source(f, 0, dt))
+        for dt in dtypes for _, f in models[dt]}))
+    print("  built %d libraries in %.1f s" % (len(set(libs)),
+                                              time.time() - t0))
+    last = {}
+    for dt in dtypes:
+        name_dt = str(dt).split(".")[1]
+        rounds = fallbacks = 0
+        for name, f in models[dt]:
+            card = engine._card_probe(f, dt, dev)
+            check(card is not None, "%s %s takes the card's rounds"
+                  % (name, name_dt))
+            seen = []
+
+            def probe(X, Y, Z, card=card, seen=seen):
+                v = card(X, Y, Z)
+                seen.append((X, Y, Z, v))
+                return v
+
+            stats = {}
+            with spans.call(stats, False):
+                got = engine._estimate_bounds_host(f, dt, probe)
+            want = engine._estimate_bounds_host(f, dt)
+            same = True
+            for X, Y, Z, v in seen:
+                plain = eval_classify._eval_volume(f, X, Y, Z, dt, dev)
+                plain = plain.to(torch.float64).cpu().numpy()
+                same &= bool(np.array_equal(v, plain, equal_nan=True) and
+                             np.array_equal(np.signbit(v),
+                                            np.signbit(plain)))
+            check(same, "%s %s: each of %d rounds' probe volume bit-equal "
+                  "to the plain evaluation on the card"
+                  % (name, name_dt, len(seen)))
+            check(got[2] == want[2] and np.array_equal(got[0], want[0])
+                  and np.array_equal(got[1], want[1]),
+                  "%s %s: the card's bounds %s %s bit-equal to the CPU "
+                  "refinement's (%d rounds, %d settled on the CPU)"
+                  % (name, name_dt, got[0].tolist(), got[1].tolist(),
+                     stats["bounds_rounds"], stats["bounds_fallbacks"]))
+            rounds += stats["bounds_rounds"]
+            fallbacks += stats["bounds_fallbacks"]
+            if name == "knurling" and dt == torch.float32:
+                last = dict(f=f, axes=seen[-1][:3], card=card)
+        print("  %s: %d models, %d rounds, %d settled on the CPU"
+              % (name_dt, len(models[dt]), rounds, fallbacks))
+
+    launches = {}
+    for label, make in (("knurling", zoo.knurling), ("blobby", zoo.blobby)):
+        kw = dict(samples=2**22, verbose=False)
+        runs = []
+        for cold in (True, False):  # bounds memo emptied, then a hit
+            for m in (engine._COUNTS_MEMO, engine._SKIP_MEMO,
+                      sparse._COUNTS_MEMO):
+                m.clear()
+            if cold:
+                engine._BOUNDS_MEMO.clear()
+            eval_classify.bounds_probe.launches = 0
+            b1 = eval_classify.eval_and_classify.launches
+            t0 = time.perf_counter()
+            sp.generate(make(), **kw)
+            torch.cuda.synchronize()
+            st = dict(engine.LAST_STATS)
+            runs.append((st, eval_classify.bounds_probe.launches,
+                         eval_classify.eval_and_classify.launches - b1,
+                         time.perf_counter() - t0))
+            if cold:
+                memoized = list(engine._BOUNDS_MEMO.values())
+        (st, probes, b1, s), (hit, hit_probes, hit_b1, hit_s) = runs
+        rnd = st["bounds_rounds"]
+        launches[label] = probes
+        check(probes == rnd > 1 and hit_probes == hit["bounds_rounds"] == 0,
+              "%s 2^22: the probe launched once a round (%d rounds, %d "
+              "settled on the CPU), not on a bounds-memo hit"
+              % (label, rnd, st["bounds_fallbacks"]))
+        check(b1 == hit_b1 and st["host_waits"] == hit["host_waits"] + rnd,
+              "%s 2^22: the refinement launched no B1 (%d a call) and waited "
+              "once a round (%d host waits, %d on a bounds-memo hit)"
+              % (label, b1, st["host_waits"], hit["host_waits"]))
+        engine._BOUNDS_MEMO.clear()
+        cpu = engine._estimate_bounds(make(), torch.float32, "cpu")
+        check(len(memoized) == 1 and memoized[0] == cpu,
+              "%s 2^22: the bounds generate() memoized equal the CPU's %s"
+              % (label, cpu))
+        print("  %s 2^22 cold %.4f s (bounds %.4f s, kernel_sources %d), "
+              "bounds-memo hit %.4f s" % (label, s, st["bounds"],
+                                           st["kernel_sources"], hit_s))
+
+    # P4 timed on the last float32 round of knurling's refinement, with CUDA
+    # events (the profiler's extra sessions here made it drop every event
+    # of a timed call in phase 22): the probe's launch alone, as
+    # bounds_probe makes it, and the plain evaluation's device span.
+    f, (X, Y, Z), card = last["f"], last["axes"], last["card"]
+    got = card(X, Y, Z)
+    plain = eval_classify._eval_volume(f, X, Y, Z, torch.float32, dev)
+    err = float(np.nanmax(np.abs(got - plain.double().cpu().numpy())))
+    _, entry = eval_classify._entries(f, 0, torch.float32)
+    P = eval_classify._params_arg(f, torch.float32, dev)
+    axes = [np.asarray(a, np.float32) for a in (X, Y, Z)]
+    vol = torch.empty(tuple(len(a) for a in axes), device=dev)
+    stream = _build.stream_ptr(dev)
+
+    def launch():
+        _build.check(entry(*[a.ctypes.data for a in axes],
+                           eval_classify._address(P), *vol.shape,
+                           vol.data_ptr(), stream), "bounds_probe")
+
+    launch()
+    check(np.array_equal(vol.double().cpu().numpy(), got, equal_nan=True),
+          "P4's launch alone writes the volume bounds_probe fetched")
+    ms = event_ms(launch, reps=50)
+    pms = event_ms(lambda: eval_classify._eval_volume(
+        f, X, Y, Z, torch.float32, dev), reps=10)
+    n = len(X) * len(Y) * len(Z)
+    ops_pt = body_op_count(eval_classify.kernel_source(f, 0, torch.float32))
+    b, by = bound_ms(4 * (n + len(X) + len(Y) + len(Z)), ops_pt * n)
+    walls = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        card(X, Y, Z)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    cpu = engine._cpu_probe(f, torch.float32)
+    cpu(X, Y, Z)
+    cpu_walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        cpu(X, Y, Z)
+        cpu_walls.append((time.perf_counter() - t0) * 1e3)
+    host, host_cpu = statistics.median(walls), statistics.median(cpu_walls)
+    print("  P4 bounds_probe float32 on knurling's %dx%dx%d round: kernel_ms "
+          "%.4f plain_ms %.4f bound_ms %.6f (%s; %d ops/point) max_abs_err "
+          "%g; host wall a round %.4f ms on the card (launch and fetch), "
+          "%.4f ms on the CPU" % (len(X), len(Y), len(Z), ms, pms, b, by,
+                                  ops_pt, err, host, host_cpu))
+    kernels["bounds_probe"] = dict(
+        name="bounds_probe", route="cuda",
+        source="sdf_torch/csrc/eval_classify.cu",
+        replaces="sdf_tpu/core/engine.py:192 (the rounds, on the host)",
+        launches=launches["knurling"], max_abs_err=err, ms=ms, plain_ms=pms,
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape="%dx%dx%d" % (len(X), len(Y), len(Z)), timing="events",
+        host_round_ms=host, cpu_round_ms=host_cpu)
+
+
 def main():
     import numpy as np
     import torch
@@ -3012,6 +3220,12 @@ def main():
         kernels = {}
         measurement_phase(dev, kernels)
         print(json.dumps({"kernels": [kernels[k] for k in PROBE_FUSIONS]}))
+        print(card_line())
+        return 0
+    if "--bounds" in sys.argv[1:]:
+        kernels = {}
+        bounds_phase(dev, kernels)
+        print(json.dumps({"kernels": [kernels["bounds_probe"]]}))
         print(card_line())
         return 0
     if "--diffmesh" in sys.argv[1:]:
@@ -3923,6 +4137,7 @@ def main():
     print("  default with the memos emptied before each call, s: median %.4f "
           "min %.4f (5 runs)" % (statistics.median(cold), min(cold)))
     print("  phases (s): %s" % json.dumps(dict(engine.LAST_STATS)))
+    bounds_phase(dev, kernels)
 
     # -- phase 7 ---------------------------------------------------------------
     print("== phase 7: generate(samples=2**24, float64) at its default "
@@ -4283,14 +4498,15 @@ def main():
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
                           "eval_classify_fields", "label3d"] + list(
-                              PROBE_FUSIONS)
+                              PROBE_FUSIONS) + ["bounds_probe"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["sharded_launches", "diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
             "kernel_only_ms", "nf", "nf4", "ms_all_rows", "prepass_ms_all_rows",
             "kernel_only_ms_all_rows", "workspace_bound_ms", "scipy_host_ms",
             "shapes",
-            "build_wall_s", "build_busy_ms", "oracle_calls", "shape"]
+            "build_wall_s", "build_busy_ms", "oracle_calls", "shape",
+            "host_round_ms", "cpu_round_ms", "timing"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

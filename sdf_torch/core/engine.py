@@ -2,9 +2,16 @@
 ``generate()``, dense and tiled, on one device or sharded over the ranks of
 a mesh (``parallel``).
 
-  * bounds: the reference's 16^3 probe-grid refinement, evaluated on the
-    CPU in the compute dtype with float64 loop state (machine-independent
-    bounds, as in the JAX package);
+  * bounds: the reference's 16^3 probe-grid refinement in the compute
+    dtype with float64 loop state (machine-independent bounds, as in the
+    JAX package), each round one launch of a probe kernel on the card
+    (``eval_classify.bounds_probe``) where the expression records whole,
+    else on the CPU; a card round with a value within ``BOUNDS_GUARD``
+    ulps of the cutoff, or not finite, where it could move an extreme is
+    evaluated again on the CPU, so the bounds are the CPU's wherever the
+    card's values lie within that guard of the CPU's (read on an H100 for
+    the zoo, the benchmark's configurations and every op, at most 1/64 of
+    it; ``chip_smoke.py`` holds the zoo's bounds to the CPU's);
   * probe cull: the per-batch ``_skip`` test, evaluated with torch ops on
     the device and fetched together with the counts (speculation);
   * eval + classify: kernel B1 (``core.eval_classify``), after a torch
@@ -71,9 +78,8 @@ _EMPTY = np.empty(0)
 
 # Structured report of the most recent generate(): span wall times in
 # seconds (``core.spans``: each span's key sums its occurrences in the
-# call; ``total`` is the root span's length), the counters ``host_waits``,
-# ``bounds_rounds`` and ``kernel_sources``, and batch/triangle counts (the
-# JAX package's keys).
+# call; ``total`` is the root span's length), the counters of
+# ``spans.COUNTERS``, and batch/triangle counts (the JAX package's keys).
 LAST_STATS = {}
 
 # When True, the dense generate() path fences device completion before
@@ -124,19 +130,120 @@ def _eval_points(sdf, points, dtype, device):
     return torch.as_tensor(sdf_c(p)).broadcast_to(p.bshape)
 
 
-def _estimate_bounds_host(sdf, dtype):
+# The near-tie guard of the bounds rounds evaluated on the card
+# (``_settled``, ``_widths``): a card value within delta = BOUNDS_GUARD * u
+# * M of the round's cutoff c may lie on the other side of c on the CPU,
+# where u is the dtype's unit roundoff and M the larger of c and the
+# probe's largest absolute coordinate.  The card's values are bit-equal to
+# PyTorch's CUDA kernels'; the CPU's transcendentals differ from those by a
+# few ulps of their results, which the expression scales by about the
+# point's coordinates.  BOUNDS_GUARD is the power of two at least 64 times
+# the largest |v_card - v_cpu| / (u * M) read on an H100 over every round of
+# the benchmark's configurations, the README example, the zoo's models and
+# every primitive and op: 15.14 in float32 (``wrap_around``), 12.23 in
+# float64, so 2^10 >= 969 (PERF.md).  M is the probe's own, not the round's
+# largest: a round's eight central probes lie at the cutoff less the
+# model's size (the reference's structural tie, which the 1e-4 slack of
+# float32 settles), a margin of 1e-4 c, which the round's largest
+# coordinate, 8.7 c, would have covered for any guard above 2^7; the
+# probe's own M, c, leaves room up to 2^10.
+BOUNDS_GUARD = 2.0**10
+_UNIT_ROUNDOFF = {torch.float32: 2.0**-24, torch.float64: 2.0**-53}
+
+
+def _cpu_probe(sdf, dtype):
+    """The CPU's evaluator of the bounds rounds: a function from three host
+    float64 axes to the values of their grid in ``dtype``, evaluated with
+    torch ops on the CPU, as a float64 numpy volume.  The cast happens at
+    the first call."""
+    sdf_c = None
+
+    def probe(X, Y, Z):
+        nonlocal sdf_c
+        if sdf_c is None:
+            sdf_c = cast(sdf, dtype, "cpu")
+        Xt, Yt, Zt = [torch.as_tensor(a, dtype=dtype) for a in (X, Y, Z)]
+        p = Points(Xt[:, None, None], Yt[None, :, None], Zt[None, None, :])
+        vol = torch.as_tensor(sdf_c(p)).broadcast_to(
+            (len(X), len(Y), len(Z)))
+        return vol.to(torch.float64).numpy()
+
+    return probe
+
+
+def _widths(X, Y, Z, c, dtype):
+    """The near-tie width ``delta`` of each probe of a round's grid with the
+    cutoff ``c`` (``BOUNDS_GUARD``): g u max(c, |x|, |y|, |z|), the outer
+    maximum of each axis' g u max(c, |a|), exact since g u is a power of
+    two."""
+    gu = BOUNDS_GUARD * _UNIT_ROUNDOFF[dtype]
+    dx, dy, dz = (gu * np.maximum(np.abs(a), c) for a in (X, Y, Z))
+    return np.maximum(np.maximum(dx[:, None, None], dy[None, :, None]),
+                      dz[None, None, :])
+
+
+def _settled(vol, c, X, Y, Z, dtype):
+    """The extremes of a round: the index rows ``[min, max]`` over the
+    probes of its values ``vol`` (grid ``X x Y x Z``) with ``|v| <= c``,
+    per axis, or no rows where there are none (all that the loop reads of
+    ``argwhere``).  None where a value within its probe's ``delta``
+    (``_widths``) of ``c`` could move them: the sure probes (``|v| <= c -
+    delta``) are none while near ones (``c - delta < |v| <= c + delta``,
+    and every value that is not finite, which the CPU may read finite)
+    exist, or a near probe lies outside the sure ones' index range on some
+    axis.  Otherwise any values within ``delta`` of the finite ones of
+    ``vol`` give the same extremes."""
+    a = np.abs(vol)
+    odd = ~np.isfinite(a)
+    # Every delta is at most the round's widest (the axes are monotone, so
+    # their largest magnitudes are at their ends); twice it covers the
+    # rounding of the comparisons, so no value that far from c is near.
+    widest = BOUNDS_GUARD * _UNIT_ROUNDOFF[dtype] * max(
+        c, *(abs(float(t[i])) for t in (X, Y, Z) for i in (0, -1)))
+    if odd.any() or (np.abs(a - c) <= 2 * widest).any():
+        delta = _widths(X, Y, Z, c, dtype)
+        sure = a <= c - delta
+        near = ~sure & ((a <= c + delta) | odd)
+        if near.any():
+            if not sure.any():
+                return None
+            for s, n in zip(_axis_hits(sure), _axis_hits(near)):
+                if n[0] < s[0] or n[-1] > s[-1]:
+                    return None
+    hits = _axis_hits(a <= c)
+    if not len(hits[0]):
+        return np.empty((0, 3), np.int64)
+    return np.array([[s[0] for s in hits], [s[-1] for s in hits]])
+
+
+def _axis_hits(mask):
+    """Per axis of a 3-D ``mask``, the indices where it holds somewhere."""
+    return [np.flatnonzero(mask.any(axis=rest))
+            for rest in ((1, 2), (0, 2), (0, 1))]
+
+
+def _estimate_bounds_host(sdf, dtype, probe=None):
     """The reference's bounds refinement: up to 32 iterations of a 16^3
-    probe grid, ALL loop arithmetic in host float64, the evaluations on the
-    CPU in ``dtype`` (see sdf_tpu.core.engine._estimate_bounds_host: the
-    float64 state keeps the trajectory machine-independent, and the 1e-4
-    slack at float32 moves the cutoff off structural ties)."""
+    probe grid, ALL loop arithmetic in host float64, the evaluations in
+    ``dtype`` (see sdf_tpu.core.engine._estimate_bounds_host: the float64
+    state keeps the trajectory machine-independent, and the 1e-4 slack at
+    float32 moves the cutoff off structural ties).
+
+    The rounds are evaluated on the CPU (``_cpu_probe``), or by ``probe``,
+    the card's evaluator (``eval_classify.bounds_probe``).  Each of its
+    rounds is settled by ``_settled``; a round it cannot settle is
+    evaluated again on the CPU, whose values decide it, and counted in
+    ``bounds_fallbacks``.  So wherever the card's finite values lie within
+    ``delta`` of the CPU's, the bounds are the CPU's, bit for bit; a card
+    value further off than that at an extreme could move a bound by a
+    probe step."""
     s = 16
     slack = 0.0 if dtype == torch.float64 else 1e-4
     lo = np.full(3, -1e9)
     hi = np.full(3, 1e9)
     prev = None
     empty = True
-    sdf_c = cast(sdf, dtype, "cpu")
+    cpu = _cpu_probe(sdf, dtype)
     for _ in range(32):
         X = np.linspace(lo[0], hi[0], s)
         Y = np.linspace(lo[1], hi[1], s)
@@ -146,12 +253,15 @@ def _estimate_bounds_host(sdf, dtype):
         if threshold == prev:
             break
         prev = threshold
-        Xt, Yt, Zt = [torch.as_tensor(a, dtype=dtype) for a in (X, Y, Z)]
-        p = Points(Xt[:, None, None], Yt[None, :, None], Zt[None, None, :])
         spans.count("bounds_rounds")
-        vol = torch.as_tensor(sdf_c(p)).broadcast_to((s, s, s))
-        vol = vol.to(torch.float64).numpy()
-        where = np.argwhere(np.abs(vol) <= threshold * (1 + slack))
+        c = threshold * (1 + slack)
+        where = None
+        if probe is not None:
+            where = _settled(probe(X, Y, Z), c, X, Y, Z, dtype)
+            if where is None:
+                spans.count("bounds_fallbacks")
+        if where is None:
+            where = np.argwhere(np.abs(cpu(X, Y, Z)) <= c)
         if len(where) == 0:
             break
         empty = False
@@ -170,16 +280,36 @@ def _fingerprint_or_none(sdf, X, Y, Z, extras):
             return None
 
 
-def _estimate_bounds(sdf, dtype=torch.float32):
+def _card_probe(sdf, dtype, device):
+    """The card's evaluator of the bounds rounds on ``device``, or None
+    where the rounds stay on the CPU: a CPU device, an expression with
+    gather-marked subtrees, or one that records no body."""
+    device = torch.device(device)
+    if device.type != "cuda" or hybrid.count_gathers(sdf):
+        return None
+    try:
+        return eval_classify.bounds_probe(sdf, dtype, device)
+    except NotImplementedError:  # NoCppForm, or no body at all
+        return None
+
+
+def _estimate_bounds(sdf, dtype=torch.float32, device="cpu"):
     """Probe-grid bounds estimation (see ``_estimate_bounds_host``),
     memoized: the refinement is deterministic in the expression, so repeat
     ``generate()`` calls on an unchanged model reuse the result instead of
-    evaluating up to 32 probe grids every time."""
+    evaluating up to 32 probe grids every time.  On a CUDA ``device`` the
+    rounds of a gather-free expression with a body run on the card
+    (``_card_probe``).  Their bounds are the CPU's wherever the card's
+    values lie within ``BOUNDS_GUARD`` ulps of the CPU's (``_settled``),
+    so the memo holds the same bounds whichever evaluated them; an op
+    whose CUDA and CPU forms differ by more than that could make them
+    differ."""
     fp = _fingerprint_or_none(sdf, _EMPTY, _EMPTY, _EMPTY, "bounds")
     key = None if fp is None else (fp, str(dtype))
     if key is not None and key in _BOUNDS_MEMO:
         return _BOUNDS_MEMO[key]
-    lo, hi, empty = _estimate_bounds_host(sdf, dtype)
+    lo, hi, empty = _estimate_bounds_host(sdf, dtype,
+                                          _card_probe(sdf, dtype, device))
     if empty:
         raise ValueError(
             "bounds estimation failed (no surface found); pass bounds= explicitly"
@@ -501,14 +631,20 @@ def generate(
     routing decision, which a routed call discards: ``record_fields``,
     ``eval_classify``, ``classify_ext``, ``mc_count``, ``counts``),
     ``counts`` (the pre-emit counts fetch), ``kernel_source`` (the eval
-    kernels' source and library lookup at each launch), ``mc_emit``,
+    kernels' source and library lookup: B6/B7 at each launch, B1 and the
+    bounds probe once a tree), ``mc_emit``,
     ``d2h``, ``decode``, ``sparse_tiles`` (the tiles route), and
     ``transform`` (the world transform and the per-tile statistics).  The
     counters: ``host_waits`` (``node.fetch`` calls: 2 for a dense call that
-    misses the counts memo, 1 on a hit, 3 for a routed call),
-    ``bounds_rounds`` (probe grids of the bounds refinement, 0 on a memo
-    hit: many rounds tell a slow refinement from a slow expression) and
-    ``kernel_sources`` (sources generated for kernels B1/B6/B7).  Under
+    misses the counts memo, 1 on a hit, 3 for a routed call, and one more
+    for each bounds round evaluated on the card), ``bounds_rounds`` (probe
+    grids of the bounds refinement, 0 on a memo hit: many rounds tell a
+    slow refinement from a slow expression), ``bounds_fallbacks`` (card
+    rounds settled on the CPU) and ``kernel_sources`` (sources generated
+    for kernels B1/B6/B7 and the bounds probe).  The bounds are those of
+    the refinement on the CPU wherever the card's values of its rounds lie
+    within ``BOUNDS_GUARD`` ulps of the CPU's (``_estimate_bounds``), so
+    every rank of a ``mesh=`` call gets the same ones.  Under
     ``PROFILE``: ``spans``, ``wait``, ``device``, ``d2h_bytes`` and, with
     ``sparse.PROFILE``, ``tiles_device``, ``tiles_d2h``,
     ``tiles_d2h_bytes``, ``tiles_decode`` (see ``PROFILE``).
@@ -578,7 +714,7 @@ def _generate(sdf, step, bounds, samples, workers, batch_size, verbose,
 
     if bounds is None:
         with spans.span("bounds"):
-            bounds = _estimate_bounds(sdf, dtype)
+            bounds = _estimate_bounds(sdf, dtype, device)
     (x0, y0, z0), (x1, y1, z1) = bounds
 
     if step is None and samples is not None:
@@ -808,7 +944,7 @@ def sample_slice(sdf, w=1024, h=1024, x=None, y=None, z=None, bounds=None,
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     if bounds is None:
-        bounds = _estimate_bounds(sdf, dtype)
+        bounds = _estimate_bounds(sdf, dtype, device)
     lo, hi = bounds
 
     fixed = {0: x, 1: y, 2: z}

@@ -11,7 +11,9 @@ The fields of gather-bearing subtrees are recorded ahead over the whole
 grid by ``core.hybrid.record_dense_windows`` and read by the body at the
 sample's own index.  On the CPU it runs the plain pair ``_eval_volume`` +
 ``mc._cell_cases`` on the same fields, which is also what
-``chip_smoke.py`` holds the kernel against.
+``chip_smoke.py`` holds the kernel against.  ``bounds_probe`` evaluates
+the engine's bounds refinement rounds on the card with a second kernel of
+B1's library, from the same body.
 
 ``eval_tiles_and_classify_batched`` (kernel B6) and
 ``eval_tiles_and_classify`` (kernel B7) do the same for a list of tiles,
@@ -35,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import math
 import numbers
+import weakref
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ import torch
 from .. import _build
 from . import hybrid, spans
 from .mc import _cell_cases
-from .node import Points, cast, tree_leaves, tree_map, upload
+from .node import Points, cast, fetch, tree_leaves, tree_map, upload
 
 _TARGET_CHUNK_POINTS = 2**22
 _BODY_MARK = "//@SDF_BODY@"
@@ -568,6 +571,38 @@ def slab_evaluations(nx, ny, nz, lx=SLAB):
     return axis(nx, lx) * axis(ny, _PY - 1) * axis(nz, _PZ - 1)
 
 
+# Kernel B1's and the bounds probe's entries, by tree (held weakly) and
+# then by (field count, dtype): the bounds probe and every B1 launch on the
+# same tree, the call's dense launch among them, resolve its library once.
+_ENTRIES = weakref.WeakKeyDictionary()
+
+
+def _entries(sdf, nf, dtype):
+    """Kernel B1's and the bounds probe's entries in the library of
+    ``sdf``'s structure with ``nf`` fields, in ``dtype``: the source
+    generated and the library found under the ``kernel_source`` span,
+    counting one source, on the first call for the tree ``sdf``; later
+    calls for it take them from ``_ENTRIES``, with no span."""
+    per = _ENTRIES.setdefault(sdf, {})
+    hit = per.get((nf, dtype))
+    if hit is not None:
+        return hit
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    with spans.span("kernel_source"):
+        spans.count("kernel_sources")
+        lib = _build.load("eval_classify", kernel_source(sdf, nf, dtype))
+        b1 = getattr(lib, "sdf_eval_classify_" + suffix)
+        b1.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp,
+                       vp]
+        b1.restype = ctypes.c_int
+        probe = getattr(lib, "sdf_bounds_probe_" + suffix)
+        probe.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
+        probe.restype = ctypes.c_int
+    per[(nf, dtype)] = (b1, probe)
+    return b1, probe
+
+
 def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
     """Kernel B1 on ``sdf`` (a ``hybrid.to_kernel_tree`` reading
     ``fields`` when they are given); adds one to
@@ -584,16 +619,8 @@ def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
             raise ValueError(
                 "eval_and_classify: a field must be %s of shape %s on %s"
                 % (dtype, tuple(vol.shape), vol.device))
-    with spans.span("kernel_source"):
-        spans.count("kernel_sources")
-        lib = _build.load("eval_classify",
-                          kernel_source(sdf, len(fields), dtype))
-        fn = getattr(lib, "sdf_eval_classify_"
-                     + ("f32" if dtype == torch.float32 else "f64"))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp,
-                       vp]
-        fn.restype = ctypes.c_int
+    fn, _ = _entries(sdf, len(fields), dtype)
+    vp = ctypes.c_void_p
     Xt, Yt, Zt = _axes(X, Y, Z, dtype, device)
     P = _params_arg(sdf, dtype, device)
     ptrs = (vp * max(1, len(fields)))(*[f.data_ptr() for f in fields])
@@ -642,6 +669,58 @@ def eval_and_classify(sdf, X, Y, Z, dtype, device, fields=None):
 
 
 eval_and_classify.launches = 0
+
+
+# The most samples an axis of the bounds probe's grid (csrc/eval_classify.cu
+# PROBE_AXIS): the axes travel by value in the kernel's arguments.
+PROBE_AXIS = 16
+
+
+def bounds_probe(sdf, dtype, device):
+    """The card's evaluator of the bounds refinement's rounds
+    (``engine._estimate_bounds_host``) for the uncast gather-free
+    expression ``sdf`` in ``dtype`` on the CUDA ``device``: a function from
+    three host float64 axes (at most ``PROBE_AXIS`` values each) to the
+    values of their grid, as a float64 numpy volume.  Each call is one
+    launch of the probe kernel in kernel B1's library
+    (``csrc/eval_classify.cu``), which adds one to
+    ``bounds_probe.launches``, and one ``node.fetch``.  The library, its
+    entry and the parameters are resolved here, once (``_entries``, which
+    B1's launches on ``sdf`` share).  Its plain pair is the
+    engine's CPU evaluator.  Raises ``NoCppForm`` (a
+    ``NotImplementedError``) where the expression records no body."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("bounds_probe: the device must be CUDA")
+    if hybrid.count_gathers(sdf):
+        raise ValueError("bounds_probe: the expression has gather-marked "
+                         "subtrees")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError("bounds_probe: dtype must be float32 or float64")
+    _, fn = _entries(sdf, 0, dtype)
+    P = _params_arg(sdf, dtype, device)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    stream = _build.stream_ptr(device)
+
+    def probe(X, Y, Z):
+        axes = [np.asarray(a, np.float64).astype(np_dtype)
+                for a in (X, Y, Z)]
+        shape = tuple(len(a) for a in axes)
+        if not all(1 <= n <= PROBE_AXIS for n in shape):
+            raise ValueError("bounds_probe: each axis takes 1 to %d values"
+                             % PROBE_AXIS)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        _build.check(
+            fn(*[a.ctypes.data for a in axes], _address(P), *shape,
+               out.data_ptr(), stream),
+            "bounds_probe",
+        )
+        bounds_probe.launches += 1
+        return fetch([out])[0].astype(np.float64)
+
+    return probe
+
+
+bounds_probe.launches = 0
 
 
 

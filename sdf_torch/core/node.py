@@ -238,7 +238,9 @@ def fetch(tensors):
         parts.append(b)
         metas.append((b.numel(), t.numel() * t.element_size(), t))
     spans.count("host_waits")
-    flat = torch.cat(parts)
+    # One tensor on the card needs no concatenation: its .cpu() copies.
+    flat = (parts[0] if len(parts) == 1 and parts[0].is_cuda
+            else torch.cat(parts))
     if flat.is_cuda and spans.profiling():
         queued = torch.cuda.Event()
         queued.record(torch.cuda.current_stream(flat.device))

@@ -19,6 +19,10 @@ opened until it closes, in any module, belongs to that call.  A span
 Counters (``count``) are integers of the call's ``stats``, always on and
 zero when the call opens (``COUNTERS``).  Outside a call a span opens only
 its profiler range and a counter counts nothing.
+
+On a card each round of the bounds refinement is a host wait of its own
+(one ``node.fetch`` of the round's values): it counts in ``host_waits``
+and, under ``engine.PROFILE``, is timed in ``wait``.
 """
 
 from __future__ import annotations
@@ -28,10 +32,15 @@ import time
 
 import torch
 
-# host_waits: node.fetch calls (each waits for the card once); bounds_rounds:
-# probe grids the bounds refinement evaluated; kernel_sources: kernel
-# sources generated by the eval kernels' launch wrappers.
-COUNTERS = ("host_waits", "bounds_rounds", "kernel_sources")
+# host_waits: node.fetch calls (each waits for the card once, a bounds round
+# evaluated on the card among them); bounds_rounds: probe grids the bounds
+# refinement evaluated, on the card or the CPU (engine._estimate_bounds_host);
+# bounds_fallbacks: rounds of the card that a near-tie sent to the CPU, whose
+# values decide them, so the bounds equal the CPU's wherever the card's
+# values lie within engine.BOUNDS_GUARD ulps of them; kernel_sources: kernel
+# sources generated by the eval kernels' launch wrappers and the bounds probe.
+COUNTERS = ("host_waits", "bounds_rounds", "bounds_fallbacks",
+            "kernel_sources")
 
 # The open call's _Call, or None: one per thread (and asyncio task).
 _CALL = contextvars.ContextVar("sdf_torch_spans_call", default=None)

@@ -57,6 +57,9 @@
 //   * Built with -fmad=false and without fast math: every op rounds as the
 //     separate elementwise PyTorch kernels of the plain version do, so the
 //     volume is bit-identical to it.
+//
+// The same library holds the bounds refinement's probe kernel (below the
+// launch of this one), so that both are built and found once.
 #include "sdf_point.cuh"
 
 namespace {
@@ -178,6 +181,57 @@ int launch(const void* X, const void* Y, const void* Z, const void* P,
   return (int)cudaGetLastError();
 }
 
+// The probe grid of the bounds refinement (core/engine.py
+// _estimate_bounds_host): the expression at every point of an nx x ny x nz
+// grid of at most PROBE_AXIS samples an axis, values only, x-major and z
+// fastest.  It replaces no TPU kernel: the JAX package evaluates these
+// rounds on the host (sdf_tpu/core/engine.py `_estimate_bounds_host`), as
+// the port's CPU path still does, a few thousand small torch calls a
+// refinement.  It shares the library, the recorded body and the flags of
+// the kernel above, so its values are bit-equal to B1's and to the plain
+// torch evaluation on the card.  A refinement round is a 16^3 grid: one
+// point a thread, 16 blocks, where B1's slab plan would give one block
+// walking 16 planes in turn.  Bound: a few microseconds of arithmetic; the
+// host's launch and fetch are what a round costs, so the axes travel by
+// value in the arguments, as the parameters do, and need no upload.
+constexpr int PROBE_THREADS = 256;
+constexpr int PROBE_AXIS = 16;
+
+template <typename T>
+struct Axes {
+  T x[PROBE_AXIS], y[PROBE_AXIS], z[PROBE_AXIS];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(PROBE_THREADS)
+bounds_probe_kernel(const __grid_constant__ Axes<T> A,
+                    const __grid_constant__ Params<T> P, int nx, int ny,
+                    int nz, T* __restrict__ out) {
+  const Fields<T> F = {};  // launched only for a body that reads no field
+  const int i = blockIdx.x * PROBE_THREADS + threadIdx.x;
+  if (i >= nx * ny * nz) return;
+  const int z = i % nz, y = (i / nz) % ny, x = i / (nz * ny);
+  out[i] = sdf_point<T>(A.x[x], A.y[y], A.z[z], P, F, i);
+}
+
+template <typename T>
+int launch_probe(const void* X, const void* Y, const void* Z, const void* P,
+                 int nx, int ny, int nz, void* out, void* stream) {
+  if (SDF_NFIELDS != 0 || nx < 1 || ny < 1 || nz < 1 || nx > PROBE_AXIS ||
+      ny > PROBE_AXIS || nz > PROBE_AXIS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Axes<T> A = {};
+  std::memcpy(A.x, X, sizeof(T) * nx);
+  std::memcpy(A.y, Y, sizeof(T) * ny);
+  std::memcpy(A.z, Z, sizeof(T) * nz);
+  const int n = nx * ny * nz;
+  bounds_probe_kernel<T><<<(n + PROBE_THREADS - 1) / PROBE_THREADS,
+                           PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      A, params_from<T>(P), nx, ny, nz, (T*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // `lx` and the grid (gz, gy, gx) are eval_classify.slab_plan's; `P` is the
@@ -202,4 +256,20 @@ extern "C" int sdf_eval_classify_f64(const void* X, const void* Y,
                                      void* stream) {
   return launch<double>(X, Y, Z, P, fields, nf, nx, ny, nz, lx, gz, gy, gx,
                         vol, cas, stream);
+}
+
+// The bounds refinement's probe grid: `X`, `Y`, `Z` the host addresses of
+// the axes' nx, ny, nz values of T (at most PROBE_AXIS each), `P` as for the
+// entries above, `out` an (nx, ny, nz) volume of T on the card; refused for
+// a body that reads fields.
+extern "C" int sdf_bounds_probe_f32(const void* X, const void* Y,
+                                    const void* Z, const void* P, int nx,
+                                    int ny, int nz, void* out, void* stream) {
+  return launch_probe<float>(X, Y, Z, P, nx, ny, nz, out, stream);
+}
+
+extern "C" int sdf_bounds_probe_f64(const void* X, const void* Y,
+                                    const void* Z, const void* P, int nx,
+                                    int ny, int nz, void* out, void* stream) {
+  return launch_probe<double>(X, Y, Z, P, nx, ny, nz, out, stream);
 }

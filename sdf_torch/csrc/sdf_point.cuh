@@ -1,6 +1,7 @@
-// The per-point SDF evaluation shared by the three eval kernels:
-// eval_classify.cu (dense grid), and the two kernels of eval_tiles.cu
-// (active tiles, without and with precomputed field inputs).
+// The per-point SDF evaluation shared by the eval kernels: eval_classify.cu
+// (dense grid, and the bounds refinement's probe grid), and the two kernels
+// of eval_tiles.cu (active tiles, without and with precomputed field
+// inputs).
 //
 // This is not a header that a compiler finds: core/eval_classify.py splices
 // its text into each kernel source at the line that includes this file,

@@ -50,9 +50,13 @@ def cuda():
     both += [hybrid.to_kernel_tree(hybrid.route_fields(m())[0])
              for m in (_erf_model, _where_model)]
     f32 = [th.form_model(sp, fn) for fn in th.pow_forms().values()]
+    bounds = {eval_classify.kernel_source(f, 0, dtype)
+              for dtype in (torch.float32, torch.float64)
+              for _, f in _bounds_models(dtype)}
     _build.build_many(
         [("eval_classify", eval_classify.kernel_source(f))
          for f in exprs + both]
+        + [("eval_classify", text) for text in sorted(bounds)]
         + [(name, source(f, dtype=torch.float32)) for f in f32
            for name, source in (
                ("eval_classify", eval_classify.kernel_source),
@@ -1174,3 +1178,141 @@ def test_profile_adds_one_wait_and_changes_no_soup(cuda, monkeypatch):
     assert len(msgs_on) == len(msgs) == 1 and len(fences) == 2
     np.testing.assert_array_equal(out[0], off)
     assert engine.LAST_STATS["d2h_bytes"] > 0 and engine.LAST_STATS["device"]
+
+
+# --- the bounds refinement's rounds on the card ------------------------------
+
+
+def _bounds_models(dtype):
+    """Gather-free expressions with a body in ``dtype``, routed as
+    ``generate()`` routes them: the README example, the benchmark's two
+    configurations at their scripts' values and 16 factor rows, the zoo's
+    models and every primitive and op (the last two: the test models)."""
+    models = [("example", th.example(sp))] + th.bench_models(sp)
+    models += [("zoo." + name, build())
+               for name, (build, _) in zoo.MODELS.items()]
+    models += [("op." + name, case[0](sp))
+               for name, case in th.op_cases().items()]
+    out = []
+    for name, f in models:
+        f = hybrid.route_fields(f, None, dtype)[0]
+        if not hybrid.count_gathers(f):
+            try:
+                eval_classify.kernel_source(f, 0, dtype)
+            except eval_classify.NoCppForm:
+                continue
+            out.append((name, f))
+    return out
+
+
+def _rounds_on_both(f, dtype, device):
+    """Every round of the CPU's refinement of ``f``, evaluated by the
+    card's probe too: ``[(X, Y, Z, card values, CPU values)]``."""
+    card = engine._card_probe(f, dtype, device)
+    assert card is not None
+    cpu = engine._cpu_probe(f, dtype)
+    seen = []
+
+    def probe(X, Y, Z):
+        v = cpu(X, Y, Z)
+        seen.append((X, Y, Z, card(X, Y, Z), v))
+        return v
+
+    engine._estimate_bounds_host(f, dtype, probe)
+    return seen
+
+
+def bounds_reading(rounds, dtype):
+    """The largest |v_card - v_cpu| / (u M) over ``rounds`` (the reading
+    behind ``engine.BOUNDS_GUARD``; M per probe, as ``engine._widths``
+    takes it), and the probes where one side is finite and the other not,
+    or the two are infinities of opposite signs."""
+    u = engine._UNIT_ROUNDOFF[dtype]
+    worst, odd = 0.0, 0
+    for X, Y, Z, card, cpu in rounds:
+        d = np.array([X[1] - X[0], Y[1] - Y[0], Z[1] - Z[0]])
+        c = np.linalg.norm(d) / 2 * (1 + (0.0 if dtype == torch.float64
+                                          else 1e-4))
+        m = engine._widths(X, Y, Z, c, dtype) / (engine.BOUNDS_GUARD * u)
+        fin = np.isfinite(card) & np.isfinite(cpu)
+        odd += int((np.isfinite(card) != np.isfinite(cpu)).sum())
+        odd += int((np.isinf(card) & np.isinf(cpu) & (card != cpu)).sum())
+        if fin.any():
+            worst = max(worst, float(
+                (np.abs(card - cpu)[fin] / (u * m[fin])).max()))
+    return worst, odd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bounds_probe_equals_plain_on_every_round(cuda, dtype):
+    """On every round of the refinement of every model, the probe kernel's
+    volume equals the plain torch evaluation of the same grid on the card
+    (values, NaNs and signed zeros), as kernel B1's does; and it lies
+    within the guard of the CPU's: 64 times the reading at most
+    ``BOUNDS_GUARD``."""
+    readings = {}
+    for name, f in _bounds_models(dtype):
+        rounds = _rounds_on_both(f, dtype, cuda)
+        for X, Y, Z, card, _ in rounds:
+            plain = eval_classify._eval_volume(f, X, Y, Z, dtype, cuda)
+            plain = plain.to(torch.float64).cpu().numpy()
+            assert np.array_equal(card, plain, equal_nan=True), name
+            assert np.array_equal(np.signbit(card), np.signbit(plain)), name
+        readings[name] = bounds_reading(rounds, dtype)
+    worst = max(r for r, _ in readings.values())
+    print("bounds reading", dtype, worst, readings)
+    assert 64 * worst <= engine.BOUNDS_GUARD, readings
+    assert not any(odd for _, odd in readings.values()), readings
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bounds_on_the_card_equal_the_cpus(cuda, dtype):
+    """The refinement with the card's probe returns the CPU refinement's
+    bounds bit for bit, on the README example and the benchmark's rows;
+    the probe kernel launches once a round and kernel B1 never."""
+    from sdf_torch.core import spans
+
+    b1 = eval_classify.eval_and_classify
+    models = [("example", th.example(sp))] + th.bench_models(sp)
+    total = fallbacks = 0
+    for name, f in models:
+        want = engine._estimate_bounds_host(f, dtype)
+        before = (eval_classify.bounds_probe.launches, b1.launches)
+        stats = {}
+        with spans.call(stats, False):
+            got = engine._estimate_bounds_host(
+                f, dtype, engine._card_probe(f, dtype, cuda))
+        assert got[2] == want[2], name
+        np.testing.assert_array_equal(got[0], want[0], err_msg=name)
+        np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+        assert (eval_classify.bounds_probe.launches - before[0]
+                == stats["bounds_rounds"] > 1), name
+        assert b1.launches == before[1], name
+        total += stats["bounds_rounds"]
+        fallbacks += stats["bounds_fallbacks"]
+    print("bounds rounds", dtype, total, "fallbacks", fallbacks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model, kw, waits, sources", [
+    ("example", dict(samples=2**15), 2, 1),
+    ("example", dict(samples=2**15, batch_size=8, sparse="tiles"), 2, 2),
+    ("blobby", dict(samples=2**16, batch_size=8), 3, 2)])
+def test_a_bounds_miss_waits_once_a_round(cuda, dtype, model, kw, waits,
+                                          sources):
+    """On a bounds-memo miss, generate() waits for the card once more for
+    each round of the refinement (its values' fetch): 2 + rounds dense, as
+    many under sparse='tiles', 3 + rounds when the cull routes (blobby).
+    The probe's library serves the dense B1 launch: one source for kernel
+    B1's library, one more for B6's on the tiles."""
+    build = th.example if model == "example" else lambda m: zoo.blobby()
+    kw = dict(verbose=False, dtype=dtype, **kw)
+    build(sp).generate(**kw)  # warm-up: builds, table uploads
+    _clear_memos()
+    engine._BOUNDS_MEMO.clear()
+    msgs = _count_syncs(lambda: build(sp).generate(**kw))
+    rounds = engine.LAST_STATS["bounds_rounds"]
+    assert rounds > 1
+    assert len(msgs) == waits + rounds == engine.LAST_STATS["host_waits"]
+    assert engine.LAST_STATS["kernel_sources"] == sources
+    assert ("auto_tiles" in engine.LAST_STATS) == (model == "blobby")

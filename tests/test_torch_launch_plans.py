@@ -38,6 +38,7 @@ def test_plan_constants_match_the_kernel_sources():
     b1 = _build.source("eval_classify.cu")
     assert (_constant(b1, "PZ"), _constant(b1, "PY")) == (ec._PZ, ec._PY)
     assert _constant(b1, "WARPS") * 2 == ec._PY
+    assert _constant(b1, "PROBE_AXIS") == ec.PROBE_AXIS
     b4 = _build.source("compact.cu")
     # _emulate_b4 below runs 256 threads with a granule in each of 4 rows
     assert (_constant(b4, "IDX_THREADS"), _constant(b4, "IDX_ROWS")) == (256, 4)
@@ -61,8 +62,8 @@ def test_wrappers_call_entries_the_sources_define():
     """Every C entry point the wrappers look up is defined in its source."""
     b1 = ec.kernel_source(sp.sphere(1))
     for dt in ("f32", "f64"):
-        name = "sdf_eval_classify_" + dt
-        assert 'extern "C" int %s(' % name in b1, name
+        for name in ("sdf_eval_classify_" + dt, "sdf_bounds_probe_" + dt):
+            assert 'extern "C" int %s(' % name in b1, name
     b4 = _build.source("compact.cu")
     for name in ("sdf_compact_indices", "sdf_compact_ranktable"):
         assert 'extern "C" int %s(' % name in b4, name

@@ -152,6 +152,39 @@ def gather_models(m):
     }
 
 
+def bench_models(m):
+    """The benchmark's configurations (``gpubench/configs``) built with the
+    package ``m``: ``[(name, expression)]`` at each script's own values
+    (``knurling``, ``blobby``) and at each of the 16 factor rows of their
+    edit traffic (``knurling.0`` ...), unjittered."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parent.parent / "gpubench"
+
+    def load(path):
+        spec = importlib.util.spec_from_file_location(
+            "bench_" + path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    traffic = load(bench / "traffic.py")
+    spec = json.loads((bench / "traffic" / "edit_2p22.json").read_text())
+    out = []
+    for name in ("knurling", "blobby"):
+        config = json.loads((bench / "configs" / (name + ".json")).read_text())
+        build = load(bench / "configs" / (name + ".py")).build
+        t = traffic.Traffic(spec, config, 0)
+        out.append((name, build(m, t.nominal)))
+        for i, row in enumerate(t.rows):
+            v = dict(t.nominal)
+            v.update({k: t.nominal[k] * float(f) for k, f in zip(t.keys, row)})
+            out.append(("%s.%d" % (name, i), build(m, v)))
+    return out
+
+
 def grid_tiles(shape, tile, rng=None, keep=0.5):
     """Tile indices of a grid of ``shape`` samples at ``tile`` cells per
     tile: all of them, or a random ``keep`` share (always with the first
