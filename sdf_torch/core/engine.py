@@ -261,6 +261,7 @@ def _estimate_bounds_host(sdf, dtype, probe=None):
             if where is None:
                 spans.count("bounds_fallbacks")
         if where is None:
+            spans.count("bounds_cpu_rounds")
             where = np.argwhere(np.abs(cpu(X, Y, Z)) <= c)
         if len(where) == 0:
             break
@@ -640,11 +641,18 @@ def generate(
     for each bounds round evaluated on the card), ``bounds_rounds`` (probe
     grids of the bounds refinement, 0 on a memo hit: many rounds tell a
     slow refinement from a slow expression), ``bounds_fallbacks`` (card
-    rounds settled on the CPU) and ``kernel_sources`` (sources generated
-    for kernels B1/B6/B7 and the bounds probe).  The bounds are those of
-    the refinement on the CPU wherever the card's values of its rounds lie
-    within ``BOUNDS_GUARD`` ulps of the CPU's (``_estimate_bounds``), so
-    every rank of a ``mesh=`` call gets the same ones.  Under
+    rounds settled on the CPU), ``bounds_cpu_rounds`` (rounds whose values
+    the CPU evaluated: all of them on a CPU device or for an expression
+    with gather-marked subtrees, the fallbacks otherwise),
+    ``kernel_sources`` (sources generated for kernels B1/B6/B7 and the
+    bounds probe) and ``recorded_fields`` (the fields of gather-bearing
+    subtrees recorded by B1's pre-pass, ``record_fields``).  A texture
+    built before the call (``image``, ``text``) adds the seconds of its
+    host build to ``texture`` (``core.spans``, a held span).  The bounds
+    are those of the refinement on the CPU wherever the card's values of
+    its rounds lie within ``BOUNDS_GUARD`` ulps of the CPU's
+    (``_estimate_bounds``), so every rank of a ``mesh=`` call gets the
+    same ones.  Under
     ``PROFILE``: ``spans``, ``wait``, ``device``, ``d2h_bytes`` and, with
     ``sparse.PROFILE``, ``tiles_device``, ``tiles_d2h``,
     ``tiles_d2h_bytes``, ``tiles_decode`` (see ``PROFILE``).

@@ -640,10 +640,13 @@ def _launch(sdf, X, Y, Z, dtype, device, lx=SLAB, fields=()):
 def record_fields(sdf, X, Y, Z, dtype, device):
     """Kernel B1's pre-pass: the fields of the gather-bearing subtrees of
     the uncast expression ``sdf`` over the whole grid ``X x Y x Z``, on
-    ``device`` (``()`` for a gather-free expression)."""
+    ``device`` (``()`` for a gather-free expression), counted in the open
+    call's ``recorded_fields``."""
     if not hybrid.count_gathers(sdf):
         return ()
-    return hybrid.record_dense(sdf, *_axes(X, Y, Z, dtype, device))
+    fields = hybrid.record_dense(sdf, *_axes(X, Y, Z, dtype, device))
+    spans.count("recorded_fields", len(fields))
+    return fields
 
 
 def eval_and_classify(sdf, X, Y, Z, dtype, device, fields=None):

@@ -2,10 +2,12 @@
 
 The setup runs once on the host, as in the JAX package: PIL rasterizes the
 glyphs or loads the image, scipy's exact Euclidean distance transform makes
-a signed texture (negative inside).  The texture becomes a parameter leaf,
-sampled bilinearly by tensor indexing on the caller's device.  Points
-outside the texture fall back to a half-size rectangle SDF, as in the
-reference.  PIL and scipy are imported inside the functions that use them.
+a signed texture (negative inside), all under the span ``texture``
+(``core.spans``: held for the next ``generate()`` where the texture is
+built before it).  The texture becomes a parameter leaf, sampled
+bilinearly by tensor indexing on the caller's device.  Points outside the
+texture fall back to a half-size rectangle SDF, as in the reference.  PIL
+and scipy are imported inside the functions that use them.
 
 The lookup has no statement form in the generated kernel body, so the
 eval function is gather-marked (``core.hybrid``): its field is recorded
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import hybrid
+from ..core import hybrid, spans
 from ..core.node import as_param
 from . import shapes2 as d2
 from .vecmath import _div_const, clip
@@ -60,29 +62,31 @@ def measure_image(thing, width=None, height=None):
 
 @d2.sdf2
 def text(font_name, text, width=None, height=None, pixels=PIXELS, points=512):
-    from PIL import Image, ImageDraw, ImageFont
+    with spans.span("texture", hold=True):
+        from PIL import Image, ImageDraw, ImageFont
 
-    font = ImageFont.truetype(font_name, points)
+        font = ImageFont.truetype(font_name, points)
 
-    # Texture bounds: 20% padding around the glyphs' bounding box.
-    p = 0.2
-    x0, y0, x1, y1 = font.getbbox(text)
-    px = int((x1 - x0) * p)
-    py = int((y1 - y0) * p)
-    tw = x1 - x0 + 1 + px * 2
-    th = y1 - y0 + 1 + py * 2
+        # Texture bounds: 20% padding around the glyphs' bounding box.
+        p = 0.2
+        x0, y0, x1, y1 = font.getbbox(text)
+        px = int((x1 - x0) * p)
+        py = int((y1 - y0) * p)
+        tw = x1 - x0 + 1 + px * 2
+        th = y1 - y0 + 1 + py * 2
 
-    im = Image.new("L", (tw, th))
-    draw = ImageDraw.Draw(im)
-    draw.text((px - x0, py - y0), text, font=font, fill=255)
+        im = Image.new("L", (tw, th))
+        draw = ImageDraw.Draw(im)
+        draw.text((px - x0, py - y0), text, font=font, fill=255)
 
-    return _texture_sdf(width, height, pixels, px, py, im)
+        return _texture_sdf(width, height, pixels, px, py, im)
 
 
 @d2.sdf2
 def image(thing, width=None, height=None, pixels=PIXELS):
-    im = _load_image(thing).convert("L")
-    return _texture_sdf(width, height, pixels, 0, 0, im)
+    with spans.span("texture", hold=True):
+        im = _load_image(thing).convert("L")
+        return _texture_sdf(width, height, pixels, 0, 0, im)
 
 
 def _texture_sdf(width, height, pixels, px, py, im):

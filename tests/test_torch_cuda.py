@@ -1293,6 +1293,25 @@ def test_bounds_on_the_card_equal_the_cpus(cuda, dtype):
     print("bounds rounds", dtype, total, "fallbacks", fallbacks)
 
 
+def test_bounds_cpu_rounds_on_a_card(cuda):
+    """On the card the CPU evaluates the bounds rounds of a gather-bearing
+    tree (no probe: every round) and of a gather-free one only where a
+    near-tie falls back."""
+    kw = dict(samples=2**15, verbose=False)
+    models = {"knurling": dict(th.bench_models(sp))["knurling"],
+              "gather": th.gather_models(sp)["rotated"]}
+    for name, f in models.items():
+        f.generate(**kw)  # warm-up: builds
+        engine._BOUNDS_MEMO.clear()
+        f.generate(**kw)
+        st = engine.LAST_STATS
+        assert st["bounds_rounds"] > 1, name
+        want = st["bounds_rounds"] if name == "gather" else st[
+            "bounds_fallbacks"]
+        assert st["bounds_cpu_rounds"] == want, name
+        assert st["recorded_fields"] == (name == "gather"), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("model, kw, waits, sources", [
     ("example", dict(samples=2**15), 2, 1),

@@ -1,13 +1,17 @@
 """The span recorder of ``sdf_torch.generate()`` (``core.spans``) on the
 CPU, at 2^13-2^15 samples: the keys it writes with ``engine.PROFILE`` off
 and on, the nesting of the list of spans, the root's length as ``total``,
-the counters ``host_waits``, ``bounds_rounds`` and ``kernel_sources``, and
-the list's clock against ``torch.profiler``'s ranges.
+the counters ``host_waits``, ``bounds_rounds``, ``bounds_cpu_rounds``,
+``recorded_fields`` and ``kernel_sources``, the list's clock against
+``torch.profiler``'s ranges, and the ``texture`` span a texture built before
+a call hands to that call.
 
 Tolerances: the spans' times against the profiler's ranges of the same
 names within 1 ms (the clocks are read a few microseconds apart); every
 other check is exact.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -186,3 +190,100 @@ def test_spans_share_the_profilers_clock(monkeypatch):
         assert len(mine) == len(theirs), name
         for (a, b), (ra, rb) in zip(mine, theirs):
             assert abs(a - ra) < 1e6 and abs(b - rb) < 1e6, name
+
+
+def _plate():
+    """A small image plate (the image configuration's lines on a 64 x 48
+    disk): a gather-bearing expression whose texture is built here, before
+    any call."""
+    yy, xx = np.mgrid[:48, :64]
+    disk = ((xx - 32) ** 2 + (yy - 24) ** 2 < 15**2).astype(np.uint8) * 255
+    f = sp.rounded_box((1.5, 1.1, 0.1), 0.05)
+    return f | sp.image(disk).extrude(1) & sp.slab(z0=0, z1=0.075)
+
+
+def test_a_texture_built_before_a_call_is_that_calls_only():
+    spans._take_held()  # nothing left over from an earlier test
+    t0 = time.perf_counter()
+    plate = _plate()
+    built = time.perf_counter() - t0
+    sp.generate(plate, **KW)
+    assert 0 < tengine.LAST_STATS["texture"] <= built
+    sp.generate(plate, **KW)
+    assert "texture" not in tengine.LAST_STATS
+    _plate()
+    sp.generate(th.example(sp), **KW)  # any next call takes it
+    assert tengine.LAST_STATS["texture"] > 0
+    sp.generate(th.example(sp), **KW)
+    assert "texture" not in tengine.LAST_STATS
+
+
+def test_a_span_outside_a_call_is_held_only_when_asked():
+    spans._take_held()
+    with spans.span("outside"):
+        pass
+    with spans.span("texture", hold=True):
+        pass
+    sp.generate(th.example(sp), **KW)
+    st = tengine.LAST_STATS
+    assert st["texture"] > 0 and "outside" not in st
+    assert spans._take_held() == []
+
+
+def test_a_held_span_under_profile_has_no_parent(monkeypatch):
+    monkeypatch.setattr(tengine, "PROFILE", True)
+    spans._take_held()
+    plate = _plate()
+    sp.generate(plate, **KW)
+    st = tengine.LAST_STATS
+    entries = st["spans"]
+    name, start, end, parent = entries[-1]
+    assert name == "texture" and parent is None
+    assert [e[0] for e in entries].count("texture") == 1
+    assert (end - start) * 1e-9 == pytest.approx(st["texture"], rel=1e-12)
+    assert end <= entries[0][1]  # built before the call opened
+    # the call's own spans nest under the root as before, none under the
+    # texture, and the root's self time (unattributed_ms) is unchanged
+    _check_nesting(entries[:-1], st["total"])
+    assert all(e[3] != len(entries) - 1 for e in entries)
+    assert _self_ns(entries) == _self_ns(entries[:-1])
+
+
+def test_bounds_cpu_rounds_count_the_rounds_the_cpu_evaluates():
+    sp.generate(th.example(sp), **KW)
+    st = tengine.LAST_STATS
+    assert st["bounds_cpu_rounds"] == st["bounds_rounds"] > 1
+    plate = _plate()
+    # a gather-bearing tree gets no card probe, whatever the device
+    assert tengine._card_probe(plate, torch.float32, "cuda") is None
+    sp.generate(plate, **KW)
+    st = tengine.LAST_STATS
+    assert st["bounds_cpu_rounds"] == st["bounds_rounds"] > 1
+
+
+@pytest.mark.parametrize("probe", ["exact", "unreadable"])
+def test_bounds_cpu_rounds_count_a_probes_fallbacks(probe):
+    """With a card's evaluator (stood in for on the CPU) the CPU evaluates
+    only the rounds it falls back on: none where the probe's values are the
+    CPU's, every one where they are not numbers."""
+    f = th.example(sp)
+    cpu = tengine._cpu_probe(f, torch.float32)
+    stand_in = cpu if probe == "exact" else (
+        lambda X, Y, Z: np.full((len(X), len(Y), len(Z)), np.nan))
+    stats = {}
+    with spans.call(stats, False):
+        got = tengine._estimate_bounds_host(f, torch.float32, stand_in)
+    want = tengine._estimate_bounds_host(f, torch.float32)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert stats["bounds_rounds"] > 1
+    assert stats["bounds_cpu_rounds"] == stats["bounds_fallbacks"]
+    assert stats["bounds_fallbacks"] == (0 if probe == "exact"
+                                         else stats["bounds_rounds"])
+
+
+def test_recorded_fields_count_the_pre_passs_fields():
+    sp.generate(_plate(), **KW)
+    assert tengine.LAST_STATS["recorded_fields"] == 1
+    sp.generate(dict(th.bench_models(sp))["knurling"], **KW)
+    assert tengine.LAST_STATS["recorded_fields"] == 0
