@@ -149,8 +149,12 @@ Phases, each printing its own lines:
      knurling at 2**26, both at the defaults: device, d2h, d2h_bytes and
      decode (warm, best of two), the soup bit-equal to the run without
      PROFILE, d2h_bytes the mesh arrays' bytes, and exactly one more host
-     wait on the dense path.  Phase 23 times its kernels with CUDA events
-     behind queued L2 flushes (``event_ms``), not torch.profiler.
+     wait on the dense path.  Then the mesh decode (kernel D1): knurling
+     and blobby at 2**26 at the benchmark's settings, warm, D1 launched
+     once a call and its buffer bit-equal to the numpy decode of the
+     packed emit, to the plain route on the card and to the returned
+     mesh.  Phase 23 times its kernels with CUDA events behind queued L2
+     flushes (``event_ms``), not torch.profiler.
 Phase 3 also holds kernel B1 with field inputs (1, 2 and 4 fields, both
 dtypes, on the example's grid) and on a gather-free model of 2D ops, and
 kernel B5 at edge shapes (ragged, all set, capacity below the count,
@@ -182,7 +186,9 @@ their launches in that run, and for the copy ``torch.add``'s time as the
 library call; the bounds probe's entry, P4, at a float32 16^3 round of
 knurling's refinement, carries that ``shape``, its launches in knurling's
 cold generate(), and the host's wall for the round on the card and on the
-CPU), the card line again, and last
+CPU; D1's entry, on knurling's 2**26 emit, carries that ``shape``, blobby's
+tiles as ``tiles_*`` and the host's readback of both meshes), the card
+line again, and last
 the result line.  Any failed check raises, and the script exits non-zero
 without a result line; so does a machine without a CUDA device.
 
@@ -211,6 +217,9 @@ phase 22 alone.
 
 ``python3 chip_smoke.py --measure`` builds phase 23's libraries, runs
 phase 23 alone and prints the probes' entries of the kernels line.
+
+``python3 chip_smoke.py --decode`` runs phase 23's mesh decode alone and
+prints D1's entry of the kernels line.
 
 ``python3 chip_smoke.py --bounds`` runs phase 6's bounds refinement alone
 (it builds its own libraries) and prints the probe's entry of the kernels
@@ -2710,15 +2719,16 @@ def count_waits(fn):
 
 
 def mesh_wire_bytes(verts, faces, dtype):
-    """The bytes of the dense path's mesh transfer for a mesh of
-    ``len(verts)`` unique vertices and ``len(faces)`` triangles: packed
-    float32 (2 words a vertex; 2 face words, or 3 int32 ranks past 2**21
-    vertices), else float64 vertices and int32 faces."""
+    """The bytes of the mesh transfer on the card for a mesh of
+    ``len(verts)`` unique vertices and ``len(faces)`` triangles: float32
+    meshes come decoded by kernel D1 (float64 vertices and int32 faces in
+    one buffer padded to 8 bytes, ``mc.mesh_layout``), float64 ones as
+    float64 vertices and int32 faces."""
     from sdf_torch.core import mc
 
     ne, n = len(verts), len(faces)
     if dtype == "float32":
-        return 8 * ne + (8 if ne < (1 << mc.FACE_PACK_BITS) else 12) * n
+        return mc.mesh_layout(ne, n)[1]
     return 24 * ne + 12 * n
 
 
@@ -2731,7 +2741,8 @@ def measure_sources(sp, zoo, _build, eval_classify, mc33):
             ("eval_tiles", eval_classify.tile_kernel_source(zoo.knurling())),
             ("ntri", _build.source("ntri.cu")),
             ("compact", _build.source("compact.cu")),
-            ("classify_ext", mc33.kernel_source())]
+            ("classify_ext", mc33.kernel_source()),
+            ("decode", _build.source("decode.cu"))]
 
 
 def measurement_phase(dev, kernels):
@@ -3168,6 +3179,136 @@ def bounds_phase(dev, kernels):
         host_round_ms=host, cpu_round_ms=host_cpu)
 
 
+def decode_phase(dev, kernels):
+    """Phase 23's mesh decode on the card (kernel D1).  knurling and blobby
+    at 2**26 through generate() at the benchmark's settings (float32,
+    sparse=True, lewiner, batches of 32: knurling on the dense path,
+    blobby routed to the tiles), warm: D1 launched once in the call
+    (``decode_on_card.launches`` reset before it, and ``card_decodes``),
+    its buffer bit-equal to the host decode (``mc.unpack_indexed``,
+    ``sparse.unpack_tiles_indexed``) of the wire format packed from the
+    same emit, to the plain route on the card (the emit's ``edge_verts``
+    widened to float64 and the ranks transposed, into one buffer), and to
+    the mesh generate() returned.  Adds D1's entry (``decode``) to
+    ``kernels``: D1 and the plain route timed with CUDA events on
+    knurling's emit against the bound (24 + 8 bytes a vertex, 12 + 12 a
+    triangle), blobby's as ``tiles_ms``, ``tiles_plain_ms`` and
+    ``tiles_bound_ms``, and the host's readback of each mesh: D1's buffer
+    fetched and viewed (``host_view_ms``) against the wire format fetched
+    and decoded with numpy (``host_unpack_ms``), medians of five."""
+    import numpy as np
+    import torch
+
+    import sdf_torch as sp
+    from sdf_torch.core import engine, mc, node
+    from sdf_torch.models import zoo
+
+    print("== phase 23, decode: the mesh decode on the card (D1) at 2**26",
+          flush=True)
+    kw = dict(samples=2**26, verbose=False, output="mesh", sparse=True,
+              mc_variant="lewiner", batch_size=32, dtype=torch.float32)
+    out = {}
+    for label, make in (("knurling", zoo.knurling), ("blobby", zoo.blobby)):
+        seen = []
+        real = mc.readback
+
+        def spy(eidx, t, faces, ne, n, plain, unpack, **where):
+            got = real(eidx, t, faces, ne, n, plain, unpack, **where)
+            seen.append((eidx, t, faces, ne, n, plain, unpack, where,
+                         got[0]))
+            return got
+
+        mc.readback = spy
+        try:
+            sp.generate(make(), **kw)
+            seen.clear()
+            mc.decode_on_card.launches = 0
+            verts, faces_h = sp.generate(make(), **kw)
+            launches = mc.decode_on_card.launches
+        finally:
+            mc.readback = real
+        st = dict(engine.LAST_STATS)
+        ((eidx, t, ranks, ne, n, plain, unpack, where, tensors),) = seen
+        tiles = "tiles" in where
+        check(launches == 1 and st["card_decodes"] == 1 and len(tensors) == 1
+              and ("auto_tiles" in st) == tiles,
+              "%s 2^26 (%s): D1 launched once (card_decodes %d), its one "
+              "buffer fetched" % (label, "tiles" if tiles else "dense",
+                                  st["card_decodes"]))
+        (buf,) = tensors
+        vbytes, nbytes = mc.mesh_layout(ne, n)
+        vh, fh = mc.split_mesh(buf.cpu().numpy(), ne, n)
+        wide = ne >= (1 << mc.FACE_PACK_BITS)
+        epack = torch.stack([eidx[:ne], t[:ne].view(torch.int32)])
+        fpack = mc.pack_faces_words(ranks[:, :n], not wide)
+        epack_h = epack.cpu().numpy().view(np.uint32)
+        fpack_h = fpack.cpu().numpy().view(np.uint32)
+        want_v, want_f = unpack(epack_h, fpack_h)
+        check(vh.dtype == want_v.dtype == np.float64
+              and np.array_equal(vh.view(np.int64), want_v.view(np.int64))
+              and fh.dtype == np.int32 and np.array_equal(fh, want_f),
+              "%s 2^26: D1's %d vertices and %d faces bit-equal to the host "
+              "decode of the packed emit (%s faces)"
+              % (label, ne, n, "int32" if wide else "21-bit"))
+
+        def plain_mesh(plain=plain, ranks=ranks, ne=ne, n=n, nbytes=nbytes):
+            v = plain()[:, :ne].to(torch.float64).T.contiguous()
+            f = ranks[:, :n].T.contiguous()
+            parts = [v.reshape(-1).view(torch.uint8),
+                     f.reshape(-1).view(torch.uint8)]
+            pad = nbytes - 24 * ne - 12 * n
+            return torch.cat(parts + [parts[1].new_zeros(pad)])
+
+        used = vbytes + 12 * n
+        check(torch.equal(plain_mesh()[:used], buf[:used]),
+              "%s 2^26: D1's buffer bit-equal to the plain route's on the "
+              "card" % label)
+        check(np.array_equal(faces_h, fh) and len(verts) == ne,
+              "%s 2^26: generate() returned D1's faces and %d vertices"
+              % (label, ne))
+
+        def d1(eidx=eidx, t=t, ranks=ranks, ne=ne, n=n, where=where):
+            return mc.decode_on_card(eidx, t, ranks, ne, n, **where)
+
+        ms = event_ms(d1, reps=20)
+        pms = event_ms(plain_mesh, reps=10)
+        b, by = bound_ms(32 * ne + 24 * n)
+        host = {}
+        for what, fn in (
+                ("view", lambda: mc.split_mesh(node.fetch([buf])[0], ne, n)),
+                ("unpack", lambda: unpack(*(a.view(np.uint32) for a in
+                                            node.fetch([epack, fpack]))))):
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            host[what] = statistics.median(walls)
+        out[label] = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                          launches=launches, host=host,
+                          shape="ne=%d n=%d" % (ne, n))
+        print("  D1 %s 2^26 (ne %d, n %d): kernel_ms %.4f plain_ms %.4f "
+              "bound_ms %.4f (%s); host readback %.2f ms fetched and viewed, "
+              "%.2f ms packed, fetched and decoded with numpy"
+              % (label, ne, n, ms, pms, b, by, host["view"], host["unpack"]),
+              flush=True)
+        del seen, buf, tensors, epack, fpack
+    k, bl = out["knurling"], out["blobby"]
+    kernels["decode"] = dict(
+        name="decode", route="cuda", source="sdf_torch/csrc/decode.cu",
+        replaces="sdf_tpu/core/mc.py:715, sdf_tpu/core/sparse.py:513 (the "
+                 "numpy decode, on the host)",
+        launches=k["launches"], max_abs_err=0.0, ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"],
+        timing="events", host_view_ms=k["host"]["view"],
+        host_unpack_ms=k["host"]["unpack"], tiles_ms=bl["ms"],
+        tiles_plain_ms=bl["plain_ms"], tiles_bound_ms=bl["bound_ms"],
+        tiles_shape=bl["shape"], tiles_host_view_ms=bl["host"]["view"],
+        tiles_host_unpack_ms=bl["host"]["unpack"])
+
+
 def main():
     import numpy as np
     import torch
@@ -3220,6 +3361,13 @@ def main():
         kernels = {}
         measurement_phase(dev, kernels)
         print(json.dumps({"kernels": [kernels[k] for k in PROBE_FUSIONS]}))
+        print(card_line())
+        return 0
+    if "--decode" in sys.argv[1:]:
+        _build.build_many([("decode", _build.source("decode.cu"))])
+        kernels = {}
+        decode_phase(dev, kernels)
+        print(json.dumps({"kernels": [kernels["decode"]]}))
         print(card_line())
         return 0
     if "--bounds" in sys.argv[1:]:
@@ -3280,6 +3428,7 @@ def main():
         ("compact", _build.source("compact.cu")),
         ("classify_ext", mc33.kernel_source()),
         ("label3d", _build.source("label3d.cu")),
+        ("decode", _build.source("decode.cu")),
     ] + elementwise_sources(sp, eval_classify, hybrid)
       + measure_sources(sp, zoo, _build, eval_classify, mc33))
     print("built %d libraries in %.1f s: %s" % (
@@ -4494,11 +4643,12 @@ def main():
     table_builder_phase(dev, kernels)
     elementwise_phase(dev, kernels)
     measurement_phase(dev, kernels)
+    decode_phase(dev, kernels)
 
     # -- result ------------------------------------------------------------------
     order = dense_path + ["eval_tiles_batched", "eval_tiles",
                           "eval_classify_fields", "label3d"] + list(
-                              PROBE_FUSIONS) + ["bounds_probe"]
+                              PROBE_FUSIONS) + ["bounds_probe", "decode"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     more = ["sharded_launches", "diffmesh_launches", "routed_launches", "routed_dense_pass", "tiles_path", "prepass_ms",
@@ -4506,7 +4656,9 @@ def main():
             "kernel_only_ms_all_rows", "workspace_bound_ms", "scipy_host_ms",
             "shapes",
             "build_wall_s", "build_busy_ms", "oracle_calls", "shape",
-            "host_round_ms", "cpu_round_ms", "timing"]
+            "host_round_ms", "cpu_round_ms", "timing", "host_view_ms",
+            "host_unpack_ms", "tiles_ms", "tiles_plain_ms", "tiles_bound_ms",
+            "tiles_shape", "tiles_host_view_ms", "tiles_host_unpack_ms"]
     print(json.dumps({"kernels": [
         {**{k: kernels[n][k] for k in keys},
          **{k: kernels[n][k] for k in more if k in kernels[n]}}

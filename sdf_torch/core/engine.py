@@ -21,9 +21,12 @@ a mesh (``parallel``).
     kernel B2 (``mc33.classify_ext``) and come back as extended codes;
   * count: ``mc.count_indexed`` (kernel B3), then ONE host sync for every
     count plus the cull mask;
-  * emit: ``mc.gather_emit_indexed`` (kernels B4, B3, B5) into buffers
-    sized by ``mc.round_capacity``, packed when float32;
-  * decode: ``mc.unpack_indexed`` on the host.
+  * emit: ``mc.emit_for_host`` (kernels B4, B3, B5) into buffers sized by
+    ``mc.round_capacity``, then the readback ``mc.readback`` picks: a
+    float32 volume on a card decoded there by kernel D1, which writes the
+    mesh in its host layout, any other float32 emit packed;
+  * decode: ``mc.readback``'s decode of the fetched arrays, views of the
+    bytes after D1, else ``mc.unpack_indexed`` on the host.
 
 ``sparse="tiles"``, or ``sparse=True`` once the fetched cull mask shows that
 at least ``AUTO_TILES_THRESHOLD`` of the batches are culled, runs the tiled
@@ -541,27 +544,18 @@ def _dense_path(sdf, X, Y, Z, s, dtype, device, mc_variant, speculate, bar,
         cell_capacity = mc.round_capacity(n_cells)
         capacity = mc.round_capacity(n)
         edge_capacity = mc.round_capacity(ne)
-        # Packed wire format (8 B/vertex + 8 B/triangle) when float32.
-        packed = False
-        if dtype == torch.float32:
-            packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
         with spans.span("mc_emit"):
-            everts, faces = mc.gather_emit_indexed(
+            mesh, decode = mc.emit_for_host(
                 vol, case, active, emask, edge_capacity, capacity,
-                cell_capacity, packed=packed, variant=mc_variant,
+                cell_capacity, ne, n, variant=mc_variant,
             )
         # One transfer: the mesh and, on a memoized run, the statistics.
-        got = node.fetch_mesh([everts[:, :ne], faces[:, :n]] + pending, 2,
-                              device, dev0, profile=PROFILE)
-        eh, fh = got[:2]
+        got = node.fetch_mesh(mesh + pending, len(mesh), device, dev0,
+                              profile=PROFILE)
         if pending:
-            per_tile, skip = got[2:]
+            per_tile, skip = got[len(mesh):]
         with spans.span("decode"):
-            if packed is not False:  # int32 bit patterns of uint32 words
-                eh, fh = eh.view(np.uint32), fh.view(np.uint32)
-                indexed = mc.unpack_indexed(eh, fh, tuple(vol.shape))
-            else:
-                indexed = (eh.astype(np.float64).T, fh.T.astype(np.int32))
+            indexed = decode(got[:len(mesh)])
     return indexed, per_tile, skip, confl
 
 
@@ -634,7 +628,8 @@ def generate(
     ``counts`` (the pre-emit counts fetch), ``kernel_source`` (the eval
     kernels' source and library lookup: B6/B7 at each launch, B1 and the
     bounds probe once a tree), ``mc_emit``,
-    ``d2h``, ``decode``, ``sparse_tiles`` (the tiles route), and
+    ``d2h``, ``decode`` (the host's decode, or its views of D1's bytes),
+    ``sparse_tiles`` (the tiles route), and
     ``transform`` (the world transform and the per-tile statistics).  The
     counters: ``host_waits`` (``node.fetch`` calls: 2 for a dense call that
     misses the counts memo, 1 on a hit, 3 for a routed call, and one more
@@ -645,8 +640,11 @@ def generate(
     the CPU evaluated: all of them on a CPU device or for an expression
     with gather-marked subtrees, the fallbacks otherwise),
     ``kernel_sources`` (sources generated for kernels B1/B6/B7 and the
-    bounds probe) and ``recorded_fields`` (the fields of gather-bearing
-    subtrees recorded by B1's pre-pass, ``record_fields``).  A texture
+    bounds probe), ``recorded_fields`` (the fields of gather-bearing
+    subtrees recorded by B1's pre-pass, ``record_fields``) and
+    ``card_decodes`` (meshes decoded on the card by kernel D1,
+    ``mc.decode_on_card``: 1 for a float32 call on a card that meshes
+    anything, 0 on the CPU or in float64).  A texture
     built before the call (``image``, ``text``) adds the seconds of its
     host build to ``texture`` (``core.spans``, a held span).  The bounds
     are those of the refinement on the CPU wherever the card's values of

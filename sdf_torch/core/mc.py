@@ -8,7 +8,12 @@ Two phases with one host sync between them, as in the JAX package:
   * ``gather_emit_indexed``: given capacities from ``round_capacity``,
     compact the active cells (kernel B4) and the crossing edges (kernel B5),
     interpolate one vertex per edge and resolve each triangle's three edge
-    ids to compacted vertex ranks.
+    ids to compacted vertex ranks;
+  * the readback (``readback``, ``emit_for_host``): on a card with a
+    float32 volume, kernel D1 (``decode_on_card``) writes the mesh in its
+    host layout and the host only views the fetched bytes
+    (``split_mesh``); elsewhere float32 travels as a wire format that the
+    host decodes with numpy (``unpack_indexed``).
 
 The triangle-soup form of the JAX package (``count``, ``emit``,
 ``interpolate_slots``) serves the differentiable path: the same kernels
@@ -32,7 +37,7 @@ import torch
 
 from .. import _build
 from ..ops.vecmath import clip
-from . import compact
+from . import compact, spans
 from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, NTRI_TABLE, TRI_TABLE
 from .node import upload
 
@@ -566,20 +571,20 @@ def emit_indexed(volume, emask, cell_state, edge_capacity, capacity,
     """Unique vertices + int32 faces: ``(everts (3, edge_capacity),
     faces (3, capacity), n_tris)``; ``everts.T[faces.T.reshape(-1)]`` is the
     triangle soup.  ``z_offset``: see ``_emit_indexed_core``."""
-    dtype = volume.dtype
-    _, ax, (ex, ey, ez), t, faces, n_tris = _emit_indexed_core(
+    _, ax, exyz, t, faces, n_tris = _emit_indexed_core(
         volume, emask, cell_state, edge_capacity, capacity, cell_capacity,
         z_offset, variant,
     )
-    everts = torch.stack(
-        [
-            ex.to(dtype) + t * (ax == 0).to(dtype),
-            ey.to(dtype) + t * (ax == 1).to(dtype),
-            ez.to(dtype) + t * (ax == 2).to(dtype),
-        ],
-        dim=0,
-    )
-    return everts, faces, n_tris
+    return edge_verts(ax, exyz, t), faces, n_tris
+
+
+def edge_verts(ax, exyz, t):
+    """The vertices ``(3, len(t))`` of edges along axes ``ax`` starting at
+    the integer samples ``exyz``: each start in ``t``'s dtype, plus ``t``
+    on the edge's axis."""
+    dt = t.dtype
+    return torch.stack([c.to(dt) + t * (ax == k).to(dt)
+                        for k, c in enumerate(exyz)], dim=0)
 
 
 def _face_branch(ncells, cbits):
@@ -725,3 +730,156 @@ def unpack_faces(fpack):
     f1 = ((w0 >> np.uint64(B)) | (w1 << np.uint64(32 - B))) & m
     f2 = (w1 >> np.uint64(2 * B - 32)) & m
     return np.stack([f0, f1, f2], axis=1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The mesh decode on the card (kernel D1, csrc/decode.cu): the emit's edge
+# ids, interpolants and face ranks become ne x 3 float64 vertices and n x 3
+# int32 faces in one device buffer, which one copy brings back and the host
+# only views.  The same IEEE float32 operations as unpack_indexed and
+# sparse.unpack_tiles_indexed, so bit-equal to them.
+# ---------------------------------------------------------------------------
+
+
+def wire_format(dtype, device, ne):
+    """How ``readback`` brings an emit of ``ne`` vertices to the host:
+    ``"card"`` for a float32 volume on a card (kernel D1 decodes the mesh
+    there); else the wire format's ``packed``: True (float32, three 21-bit
+    ranks in two words), ``"wide"`` (float32 from 2^21 vertices on) or
+    False (float64, the vertices as they are)."""
+    if dtype != torch.float32:
+        return False
+    if torch.device(device).type == "cuda":
+        return "card"
+    return True if ne < (1 << FACE_PACK_BITS) else "wide"
+
+
+def readback(eidx, t, faces, ne, n, plain, unpack, **where):
+    """The first ``ne`` vertices and ``n`` faces of an indexed emit as the
+    host fetches them: ``(tensors, decode)``, where ``decode`` turns the
+    fetched arrays of ``tensors`` into ``(verts (ne, 3) float64, faces (n,
+    3) int32)``.  ``eidx``, ``t`` and ``faces`` are the emit's ascending
+    edge ids, interpolants and ``(3, capacity)`` face ranks; ``where``
+    places the edges for kernel D1 (``grid_shape=``, or ``tiles=`` and
+    ``tile=``, as ``decode_on_card`` takes them).  The format is
+    ``wire_format``'s: on a card D1's one buffer, viewed by
+    ``split_mesh``; elsewhere in float32 the wire format, which
+    ``unpack(epack, fpack)`` (numpy uint32) decodes; in float64 the
+    vertices ``plain()`` gives ``(3, capacity)`` and the ranks."""
+    fmt = wire_format(t.dtype, t.device, ne)
+    if fmt == "card":
+        buf = decode_on_card(eidx, t, faces, ne, n, **where)
+        return [buf], lambda got: split_mesh(got[0], ne, n)
+    if fmt is False:
+        return ([plain()[:, :ne], faces[:, :n]],
+                lambda got: (got[0].astype(np.float64).T,
+                             got[1].T.astype(np.int32)))
+    # int32 bit patterns of the uint32 words the host decodes
+    epack = torch.stack([eidx.to(torch.int32), t.view(torch.int32)], dim=0)
+    fpack = pack_faces_words(faces, fmt is True)
+    return ([epack[:, :ne], fpack[:, :n]],
+            lambda got: unpack(got[0].view(np.uint32),
+                               got[1].view(np.uint32)))
+
+
+def mesh_layout(ne, n):
+    """The byte layout of kernel D1's buffer: ``(vertex bytes, buffer
+    bytes)``.  ``ne x 3`` float64 vertices, then ``n x 3`` int32 faces,
+    the whole padded to 8 bytes (so ``node.fetch`` copies it as it is)."""
+    vbytes = 24 * ne
+    return vbytes, vbytes + 12 * n + 12 * n % 8
+
+
+def split_mesh(buf, ne, n):
+    """The fetched D1 buffer (numpy uint8, ``mesh_layout(ne, n)[1]``
+    bytes) as ``(verts (ne, 3) float64, faces (n, 3) int32)``, views of
+    ``buf``."""
+    vbytes, nbytes = mesh_layout(ne, n)
+    if buf.dtype != np.uint8 or buf.shape != (nbytes,):
+        raise ValueError("expected %d bytes of uint8, got %s %s"
+                         % (nbytes, buf.dtype, buf.shape))
+    vh = buf[:vbytes].view(np.float64).reshape(ne, 3)
+    fh = buf[vbytes: vbytes + 12 * n].view(np.int32).reshape(n, 3)
+    return vh, fh
+
+
+def _decode_lib():
+    lib = _build.load("decode", _build.source("decode.cu"))
+    if not getattr(lib, "_sdf_typed", False):
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.sdf_decode_dense.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64,
+                                         i64, vp, vp]
+        lib.sdf_decode_tiles.argtypes = [vp, vp, vp, i64, i64, i64, vp, i64,
+                                         vp, vp]
+        for fn in (lib.sdf_decode_dense, lib.sdf_decode_tiles):
+            fn.restype = ctypes.c_int
+        lib._sdf_typed = True
+    return lib
+
+
+def decode_on_card(eidx, t, faces, ne, n, grid_shape=None, tiles=None,
+                   tile=None):
+    """Kernel D1: the first ``ne`` of the emit's ascending edge ids
+    ``eidx`` (int32) and interpolants ``t`` (float32), and the first ``n``
+    columns of its face ranks ``faces`` ((3, capacity) int32), as one uint8
+    device buffer in ``mesh_layout(ne, n)``.  The vertices are those of
+    ``unpack_indexed`` on the dense grid of ``grid_shape`` samples, or of
+    ``sparse.unpack_tiles_indexed`` on the ``(ntc, 3)`` int32 tile list
+    ``tiles`` (on the card) of ``tile`` cells a side, bit for bit.
+
+    Launches on the current stream and does not wait.  Adds one to
+    ``decode_on_card.launches`` and to the open call's ``card_decodes``.
+    Its plain counterpart is the emit's ``edge_verts`` widened to float64
+    and the ranks transposed, on the card; on the CPU the emit packs its
+    wire format and the host decodes it (``readback``)."""
+    for x, what in ((eidx, "eidx"), (t, "t"), (faces, "faces")):
+        _build.require_cuda(x, "decode_on_card " + what)
+    if (eidx.dtype != torch.int32 or t.dtype != torch.float32
+            or faces.dtype != torch.int32 or faces.dim() != 2
+            or faces.shape[0] != 3):
+        raise ValueError("decode_on_card: int32 eidx, float32 t and (3, "
+                         "capacity) int32 faces")
+    if not (0 <= ne <= min(eidx.numel(), t.numel())
+            and 0 <= n <= faces.shape[1]):
+        raise ValueError("decode_on_card: %d vertices and %d faces exceed "
+                         "the emit's buffers" % (ne, n))
+    dev = eidx.device
+    out = torch.empty(mesh_layout(ne, n)[1], dtype=torch.uint8, device=dev)
+    lib = _decode_lib()
+    head = (eidx.data_ptr(), t.data_ptr(), faces.data_ptr(), faces.shape[1],
+            ne, n)
+    if tiles is None:
+        nx, ny, nz = grid_shape
+        rc = lib.sdf_decode_dense(*head, nx, ny, nz, out.data_ptr(),
+                                  _build.stream_ptr(dev))
+    else:
+        _build.require_cuda(tiles, "decode_on_card tiles")
+        if (tiles.dtype != torch.int32 or tiles.dim() != 2
+                or tiles.shape[1] != 3):
+            raise ValueError("decode_on_card: (ntc, 3) int32 tiles")
+        rc = lib.sdf_decode_tiles(*head, tiles.data_ptr(), tile,
+                                  out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, "decode_on_card")
+    decode_on_card.launches += 1
+    spans.count("card_decodes")
+    return out
+
+
+decode_on_card.launches = 0
+
+
+def emit_for_host(volume, case, active, emask, edge_capacity, capacity,
+                  cell_capacity, ne, n, variant="default"):
+    """``gather_emit_indexed`` for a readback of its first ``ne`` vertices
+    and ``n`` faces (the counts fetched before it): ``readback``'s
+    ``(tensors, decode)``."""
+    state = compact_cells(case, active, cell_capacity, variant)
+    eidx, ax, exyz, t, faces, _ = _emit_indexed_core(
+        volume, emask, state, edge_capacity, capacity, cell_capacity,
+        variant=variant,
+    )
+    shape = tuple(volume.shape)
+    return readback(eidx, t, faces, ne, n,
+                    plain=lambda: edge_verts(ax, exyz, t),
+                    unpack=lambda e, f: unpack_indexed(e, f, shape),
+                    grid_shape=shape)

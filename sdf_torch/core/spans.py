@@ -50,9 +50,11 @@ import torch
 # each fallback); kernel_sources: kernel sources generated by the eval
 # kernels' launch wrappers and the bounds probe; recorded_fields: the fields
 # of gather-bearing subtrees that kernel B1's pre-pass recorded
-# (eval_classify.record_fields).
+# (eval_classify.record_fields); card_decodes: meshes decoded on the card by
+# kernel D1 (mc.decode_on_card), 0 where the host decodes.
 COUNTERS = ("host_waits", "bounds_rounds", "bounds_fallbacks",
-            "bounds_cpu_rounds", "kernel_sources", "recorded_fields")
+            "bounds_cpu_rounds", "kernel_sources", "recorded_fields",
+            "card_decodes")
 
 # The open call's _Call, or None: one per thread (and asyncio task).
 _CALL = contextvars.ContextVar("sdf_torch_spans_call", default=None)

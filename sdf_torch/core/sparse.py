@@ -191,9 +191,38 @@ def _emit_tiles_indexed(vols, tiles, live, case, emask, cshape,
     vertices dedup within a tile and stay duplicated across tile
     boundaries.  ``everts.T[faces.T.reshape(-1)]`` is the triangle soup in
     (tile, cell) order.  ``packed`` selects the wire format as in
-    ``mc.gather_emit_indexed`` (float32 only when not False).
+    ``mc.gather_emit_indexed`` (float32 only when not False)."""
+    if packed is not False and vols.dtype != torch.float32:
+        raise ValueError("packed emit needs float32 tile volumes")
+    eidx, t, (tid, a, x, y, z), faces, n_tris = _emit_tiles_core(
+        vols, tiles, live, case, emask, cshape, edge_capacity, capacity,
+        cell_capacity, tile, variant)
+    if packed is not False:
+        # Wire format: (edge id, t bits); the host rebuilds positions with
+        # the same float32 ops (unpack_tiles_indexed).
+        everts = torch.stack([eidx.to(torch.int32), t.view(torch.int32)],
+                             dim=0)
+        faces = mc.pack_faces_words(faces, packed is True)
+    else:
+        everts = mc.edge_verts(a, _tile_starts(tiles, tile, tid, (x, y, z)),
+                               t)
+    return everts, faces, n_tris
 
-    Edge ids are int32 on the wire and in the compaction kernels, so
+
+def _tile_starts(tiles, tile, tid, local):
+    """The global integer starts (int64) of edges at tile-local starts
+    ``local`` in the tiles ``tid`` of the tile list ``tiles``."""
+    trow = tiles.to(torch.int64)[tid]  # (edge_capacity, 3)
+    return [trow[:, k] * tile + c for k, c in enumerate(local)]
+
+
+def _emit_tiles_core(vols, tiles, live, case, emask, cshape, edge_capacity,
+                     capacity, cell_capacity, tile, variant="default"):
+    """The body of ``_emit_tiles_indexed``: ``(eidx int32, t, (tid, axis,
+    x, y, z), faces (3, capacity) ranks, n_tris)``, each per-edge tensor
+    ``(edge_capacity,)``, ``x, y, z`` the edge's tile-local start.
+
+    Edge ids are int32 in the compaction kernels and on the wire, so
     ``ntc * Stile`` must stay below 2^31 (grids to about 2^28 samples at
     tile 32); a larger tile list raises."""
     TS = tile + 1
@@ -204,9 +233,6 @@ def _emit_tiles_indexed(vols, tiles, live, case, emask, cshape,
         raise ValueError(
             "tiled emit: %d tiles of %d edge slots exceed int32 edge ids"
             % (ntc, Stile))
-    if packed is not False and vols.dtype != torch.float32:
-        raise ValueError("packed emit needs float32 tile volumes")
-    dt = vols.dtype
     tab = mc.get_tables(variant)
     cbits, max_tris = tab.case_bits, tab.max_tris
     valid = _cell_valid(tiles, live, cshape, tile)
@@ -254,21 +280,6 @@ def _emit_tiles_indexed(vols, tiles, live, case, emask, cshape,
     t = torch.clamp(
         torch.clamp(va / torch.where(denom == 0, 1.0, denom), min=0.0), max=1.0
     )
-    if packed is not False:
-        # Wire format: (edge id, t bits); the host rebuilds positions with
-        # the same float32 ops (unpack_tiles_indexed).
-        everts = torch.stack([eidx.to(torch.int32), t.view(torch.int32)],
-                             dim=0)
-    else:
-        trow = tiles.to(torch.int64)[tid]  # (edge_capacity, 3)
-        everts = torch.stack(
-            [
-                (trow[:, 0] * tile + x).to(dt) + t * (a == 0).to(dt),
-                (trow[:, 1] * tile + y).to(dt) + t * (a == 1).to(dt),
-                (trow[:, 2] * tile + z).to(dt) + t * (a == 2).to(dt),
-            ],
-            dim=0,
-        )
 
     # --- tri-major face resolution (see mc._resolve_faces) -------------------
     if _word_pack_fits(tile, cbits):
@@ -302,9 +313,7 @@ def _emit_tiles_indexed(vols, tiles, live, case, emask, cshape,
         for v in range(3)
     ]
     faces = compact.rank_lookup(ranktab, torch.cat(gids)).reshape(3, capacity)
-    if packed is not False:
-        faces = mc.pack_faces_words(faces, packed is True)
-    return everts, faces, n_tris
+    return eidx, t, (tid, a, x, y, z), faces, n_tris
 
 
 def unpack_tiles_indexed(epack, fpack, tiles_np, tile, dtype=np.float32):
@@ -442,31 +451,25 @@ def mesh_sparse_tiles(sdf, X, Y, Z, skip, tile, dtype, device, memo_key=None,
     capacity = round_capacity(n)
     cell_capacity = round_capacity(ncl)
     edge_capacity = round_capacity(ne)
-    # Packed wire format (8 B/vertex + 8 B/triangle) for float32 volumes;
-    # the host decode is bit-identical to the plain indexed emit.
-    packed = False
-    if dtype == torch.float32:
-        packed = True if ne < (1 << mc.FACE_PACK_BITS) else "wide"
-    everts, faces, _ = _emit_tiles_indexed(
+    eidx, t, (tid, a, x, y, z), faces, _ = _emit_tiles_core(
         vols, tiles_d, live_d, case, emask, cshape, edge_capacity, capacity,
-        cell_capacity, tile, packed=packed, variant=variant,
-    )
+        cell_capacity, tile, variant)
+    mesh, decode = mc.readback(
+        eidx, t, faces, ne, n,
+        plain=lambda: mc.edge_verts(a, _tile_starts(tiles_d, tile, tid,
+                                                    (x, y, z)), t),
+        unpack=lambda e, f: unpack_tiles_indexed(e, f, tiles, tile),
+        tiles=tiles_d, tile=tile)
     # The emitted count equals ``total`` (fetched or memoized), so the
     # slices need no further wait.  "tiles_device" (PROFILE) is everything
     # from entry (dispatch, eval, the counts wait on a cold run, emit) to
     # the fence before the transfer.
-    got = node.fetch_mesh([everts[:, :ne], faces[:, :n]]
-                          + ([per_tile] if per_tile_h is None else []), 2,
-                          device, dev0, prefix="tiles_", profile=PROFILE)
-    eh, fh_raw = got[:2]
+    got = node.fetch_mesh(mesh + ([per_tile] if per_tile_h is None else []),
+                          len(mesh), device, dev0, prefix="tiles_",
+                          profile=PROFILE)
     if per_tile_h is None:
-        per_tile_h = got[2]
+        per_tile_h = got[len(mesh)]
     with spans.span("tiles_decode", key=PROFILE):
         pt[tuple(active.T)] = per_tile_h[:nt]
-        if packed is not False:  # int32 bit patterns of uint32 words
-            vh, fh = unpack_tiles_indexed(eh.view(np.uint32),
-                                          fh_raw.view(np.uint32), tiles, tile)
-        else:
-            vh = eh.astype(np.float64).T  # (ne, 3)
-            fh = fh_raw.T.astype(np.int32)
-    return (vh, fh), pt
+        mesh_h = decode(got[:len(mesh)])
+    return mesh_h, pt

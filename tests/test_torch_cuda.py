@@ -68,7 +68,8 @@ def cuda():
            ("compact", _build.source("compact.cu")),
            ("classify_ext", mc33.kernel_source()),
            ("label3d", _build.source("label3d.cu")),
-           ("probes", _build.source("probes.cu"))]
+           ("probes", _build.source("probes.cu")),
+           ("decode", _build.source("decode.cu"))]
     )
     return torch.device("cuda")
 
@@ -1335,3 +1336,103 @@ def test_a_bounds_miss_waits_once_a_round(cuda, dtype, model, kw, waits,
     assert len(msgs) == waits + rounds == engine.LAST_STATS["host_waits"]
     assert engine.LAST_STATS["kernel_sources"] == sources
     assert ("auto_tiles" in engine.LAST_STATS) == (model == "blobby")
+
+
+# --- the mesh decode on the card: kernel D1 -----------------------------------
+
+
+def _spy_d1(monkeypatch):
+    """Record each launch of kernel D1 with the host decode's inputs made
+    from the same emit: ``(D1's buffer, epack, fpack, ne, n, grid_shape,
+    host tiles, tile)``, the wire format packed as the CPU path packs it
+    (21-bit face words below 2^21 vertices, int32 ranks from there)."""
+    seen = []
+    real = mc.decode_on_card
+
+    def spy(eidx, t, faces, ne, n, grid_shape=None, tiles=None, tile=None):
+        out = real(eidx, t, faces, ne, n, grid_shape=grid_shape, tiles=tiles,
+                   tile=tile)
+        epack = torch.stack([eidx[:ne], t[:ne].view(torch.int32)])
+        fpack = mc.pack_faces_words(faces[:, :n],
+                                    ne < (1 << mc.FACE_PACK_BITS))
+        seen.append((out, epack.cpu().numpy().view(np.uint32),
+                     fpack.cpu().numpy().view(np.uint32), ne, n, grid_shape,
+                     None if tiles is None else tiles.cpu().numpy(), tile))
+        return out
+
+    # The wrapper counts its launches on whatever its module's name holds.
+    spy.launches = real.launches
+    monkeypatch.setattr(mc, "decode_on_card", spy)
+    return seen
+
+
+def _same_float64_bits(a, b):
+    return a.dtype == b.dtype == np.float64 and np.array_equal(
+        a.view(np.int64), b.view(np.int64))
+
+
+@pytest.mark.parametrize("name, samples, tris", [
+    ("knurling", 2**18, None), ("example", 2**22, 291_028)])
+def test_card_decode_equals_the_host_decode(cuda, monkeypatch, name, samples,
+                                            tris):
+    """Kernel D1 on the dense path: the vertices and faces it writes are
+    bit-equal to ``mc.unpack_indexed`` of the packed emit of the same edge
+    ids, interpolants and ranks, and ``card_decodes`` reads 1."""
+    f = th.example(sp) if name == "example" else zoo.knurling()
+    seen = _spy_d1(monkeypatch)
+    before = mc.decode_on_card.launches
+    verts, faces = f.generate(samples=samples, verbose=False, output="mesh")
+    assert engine.LAST_STATS["card_decodes"] == 1
+    assert "auto_tiles" not in engine.LAST_STATS
+    ((buf, epack, fpack, ne, n, grid, tiles, _),) = seen
+    assert tiles is None and grid is not None
+    assert mc.decode_on_card.launches == before + 1
+    vh, fh = mc.split_mesh(buf.cpu().numpy(), ne, n)
+    want_v, want_f = mc.unpack_indexed(epack, fpack, grid)
+    assert _same_float64_bits(vh, want_v)
+    assert np.array_equal(fh, want_f) and fh.dtype == np.int32
+    assert np.array_equal(faces, fh) and len(verts) == ne
+    if tris is not None:
+        assert n == tris
+
+
+@pytest.mark.parametrize("name, samples, kw", [
+    ("blobby", 2**20, {"batch_size": 16}),
+    ("saddle", 2**24, {"sparse": "tiles"})])
+def test_card_decode_equals_the_host_decode_on_tiles(cuda, monkeypatch, name,
+                                                     samples, kw):
+    """Kernel D1 on the tiles: bit-equal to ``sparse.unpack_tiles_indexed``
+    of the packed emit of the same tiles emit, for blobby routed by the
+    cull (0.70 of its batches of 16) and for the saddle model's 2^21
+    vertices and more (the wide face format on the host's side);
+    ``card_decodes`` reads 1."""
+    from sdf_torch.core import sparse
+
+    f = zoo.blobby() if name == "blobby" else zoo.saddle(omega=60.0)
+    seen = _spy_d1(monkeypatch)
+    verts, faces = f.generate(samples=samples, verbose=False, output="mesh",
+                              **kw)
+    assert engine.LAST_STATS["card_decodes"] == 1
+    assert ("auto_tiles" in engine.LAST_STATS) == (name == "blobby")
+    ((buf, epack, fpack, ne, n, grid, tiles, tile),) = seen
+    assert grid is None and tiles is not None
+    assert (ne >= 1 << mc.FACE_PACK_BITS) == (name == "saddle")
+    vh, fh = mc.split_mesh(buf.cpu().numpy(), ne, n)
+    want_v, want_f = sparse.unpack_tiles_indexed(epack, fpack, tiles, tile)
+    assert _same_float64_bits(vh, want_v)
+    assert np.array_equal(fh, want_f) and fh.dtype == np.int32
+    assert np.array_equal(faces, fh) and len(verts) == ne
+
+
+@pytest.mark.parametrize("sparse_mode", [False, "tiles"])
+def test_float64_keeps_the_host_path(cuda, sparse_mode):
+    """A float64 volume on the card launches no D1: ``card_decodes`` 0."""
+    before = mc.decode_on_card.launches
+    th.example(sp).generate(samples=2**15, sparse=sparse_mode, batch_size=8,
+                            verbose=False, dtype=torch.float64)
+    assert engine.LAST_STATS["card_decodes"] == 0
+    assert mc.decode_on_card.launches == before
+    th.example(sp).generate(samples=2**15, sparse=sparse_mode, batch_size=8,
+                            verbose=False)
+    assert engine.LAST_STATS["card_decodes"] == 1
+    assert mc.decode_on_card.launches == before + 1

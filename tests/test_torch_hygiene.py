@@ -115,9 +115,16 @@ def test_kernel_sources_are_shipped_and_named():
     # every file under csrc/ is one the wrappers build or splice, and the
     # package data ships each of them (*.cu does not match the .cuh)
     assert sorted(os.listdir(csrc)) == [
-        "classify_ext.cu", "compact.cu", "eval_classify.cu", "eval_tiles.cu",
-        "label3d.cu", "mc33_cell.cuh", "ntri.cu", "probes.cu",
-        "sdf_point.cuh"]
+        "classify_ext.cu", "compact.cu", "decode.cu", "eval_classify.cu",
+        "eval_tiles.cu", "label3d.cu", "mc33_cell.cuh", "ntri.cu",
+        "probes.cu", "sdf_point.cuh"]
+    with open(os.path.join(csrc, "decode.cu")) as fp:
+        text = fp.read()
+    assert "Replaces: no TPU kernel" in text
+    assert "sdf_tpu/core/mc.py `unpack_indexed`" in text
+    for entry in ("sdf_decode_dense", "sdf_decode_tiles"):
+        assert 'extern "C" int %s(' % entry in text, entry
+    assert "fast_math" not in text and "fmaf(" not in text
     with open(os.path.join(csrc, "probes.cu")) as fp:
         text = fp.read()
     assert "Replaces: no TPU kernel" in text
